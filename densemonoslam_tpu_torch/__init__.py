@@ -6,9 +6,12 @@ its counterpart's public names, argument order and array layouts (maps
 parity tests under `tests/test_torch_*.py` feed both the same numpy inputs.
 This package never imports jax or `densemonoslam_tpu`.
 
-Ported so far: the open-loop single-camera RGB-D path (`engine.Engine` ->
-`step.make_step`), with the Gram reduction as a hand-written CUDA kernel
-(`csrc/gram.cu`, wrapped by `ops.gram`).
+Ported so far: the single-camera RGB-D path (`engine.Engine` ->
+`step.make_step`), open or closed loop (ferns, local loop closure through
+the deformation graph) and with relocalisation.  Both TPU kernels are
+hand-written CUDA kernels: the Gram reduction (`csrc/gram.cu`, wrapped by
+`ops.gram`) and the whole-map deformation (`csrc/deform.cu`, `ops.deform`).
+Entry points run on the card unless the caller asks for the CPU.
 """
 
 import torch as _torch

@@ -1,11 +1,18 @@
 """The SLAM engine: host-side orchestration around the per-frame step (port
-of `densemonoslam_tpu.engine`, single-camera open-loop path).
+of `densemonoslam_tpu.engine` for one camera and one map).
 
-`Engine.process_frame` uploads a frame, runs `step.make_step`'s step, logs the
-stats vector (the tracked pose rides in it) and compacts the map every 64
-frames.  Modes that are not ported yet raise `NotImplementedError`: closed
-loop (`open_loop=False`), relocalisation, ORB tracking, hybrid loops, depth
-prediction and a second frontend.
+`Engine.process_frame` uploads a frame, runs `step.make_step`'s step, logs
+the stats vector, records the tracked pose in a device pose history and
+compacts the map every 64 frames.  Unless `open_loop`, every
+`loop_check_interval` frames it updates the fern keyframe database and tries
+a local loop closure; an accepted closure rewrites the pose history and the
+fern poses through the deformation graph and re-partitions the map.  With
+`relocalisation`, a lagged poll of the step's device-side bad-frame counter
+detects a lost camera and `relocalise` recovers it through the ferns.
+
+Modes that are not ported yet raise `NotImplementedError`: ORB tracking,
+hybrid loops, depth prediction and a second frontend.  Entry points run on
+the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -15,13 +22,20 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from densemonoslam_tpu_torch import loops as loopsmod
 from densemonoslam_tpu_torch import step as stepmod
 from densemonoslam_tpu_torch.config import CameraConfig, EngineConfig
+from densemonoslam_tpu_torch.mapping import deformation as dg
+from densemonoslam_tpu_torch.mapping import ferns as fernmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
+from densemonoslam_tpu_torch.ops import preprocess
+from densemonoslam_tpu_torch.tracking import odometry
 from densemonoslam_tpu_torch.utils.stats import SessionStats
 
-_UNPORTED_MODES = ("relocalisation", "orb_tracking", "hybrid_loops", "predict_depth")
+_UNPORTED_MODES = ("orb_tracking", "hybrid_loops", "predict_depth")
+_HIST_INITIAL_CAP = 1024
 
 
 @dataclasses.dataclass
@@ -35,9 +49,20 @@ class Frontend:
     step_fn: object
     tick: int = 0
     map_name: str = ""
+    # device pose history [cap,4,4] + per-pose session ticks [cap]: one
+    # device copy per frame into a buffer that doubles when full.  Accepted
+    # loop closures rewrite it through the deformation graph, so exported
+    # trajectories reflect closures, not raw odometry.
+    pose_hist: Optional[torch.Tensor] = None
+    hist_times: Optional[torch.Tensor] = None
     ts_log: List[float] = dataclasses.field(default_factory=list)
     stats_log: List[torch.Tensor] = dataclasses.field(default_factory=list)
     stats: SessionStats = dataclasses.field(default_factory=SessionStats)
+    fern_state: Optional[loopsmod.FernLoopState] = None
+    loops_closed: int = 0
+    last_loop_info: Optional[loopsmod.LoopInfo] = None
+    lost: bool = False
+    consecutive_bad: int = 0
 
     @property
     def pose(self) -> np.ndarray:
@@ -51,12 +76,26 @@ class Frontend:
 
     @property
     def trajectory(self) -> List[Tuple[float, np.ndarray]]:
-        """(timestamp, camera-to-world pose) per processed frame."""
-        if not self.stats_log:
+        """(timestamp, camera-to-world pose) per processed frame, from the
+        pose history (corrected by accepted loop closures)."""
+        n = len(self.ts_log)
+        if n == 0:
             return []
-        rows = torch.stack(self.stats_log).cpu().numpy()
-        poses = rows[:, stepmod.STAT_POSE0:].reshape(-1, 4, 4)
-        return list(zip(self.ts_log, poses))
+        return list(zip(self.ts_log, self.pose_hist[:n].cpu().numpy()))
+
+    def record_pose(self, stats_row: torch.Tensor, session_tick: int) -> None:
+        """Copy the step's tracked pose (stats rows 13:29) into the history
+        row of this frame, on the device."""
+        n = len(self.ts_log)  # the caller appends ts_log right after
+        if self.pose_hist is None:
+            dev = stats_row.device
+            self.pose_hist = torch.zeros((_HIST_INITIAL_CAP, 4, 4), dtype=torch.float32, device=dev)
+            self.hist_times = torch.zeros((_HIST_INITIAL_CAP,), dtype=torch.float32, device=dev)
+        if n >= self.pose_hist.shape[0]:
+            self.pose_hist = torch.cat([self.pose_hist, torch.zeros_like(self.pose_hist)])
+            self.hist_times = torch.cat([self.hist_times, torch.zeros_like(self.hist_times)])
+        self.pose_hist[n].copy_(stats_row[stepmod.STAT_POSE0 :].reshape(4, 4))
+        self.hist_times[n].fill_(float(session_tick))
 
     def finalize_stats(self) -> None:
         """Realise the logged stats vectors into `SessionStats`."""
@@ -73,6 +112,28 @@ class Frontend:
         self.stats.keyframes = int(arr[-1][stepmod.STAT_KEYFRAMES])
 
 
+@dataclasses.dataclass
+class MapBackend:
+    """Per-map state (reference `ReferenceFrame`): the canonical surfel
+    tensor, which the frontend's state holds too (the same tensor, updated
+    in place by fusion and by loop closures)."""
+
+    name: str
+    map_data: Optional[torch.Tensor] = None  # [N+1, 16]
+    map_count: Optional[torch.Tensor] = None  # []
+    contexts: List[str] = dataclasses.field(default_factory=list)
+    deforms: int = 0
+    dropped: int = 0  # surfels lost to capacity clamps when maps merge
+    # carried relative constraints: emitted by accepted local deformations,
+    # consumed by every later deformation of this map
+    rel_bank: Optional[loopsmod.RelBank] = None
+
+    def get_rel_bank(self) -> loopsmod.RelBank:
+        if self.rel_bank is None:
+            self.rel_bank = loopsmod.make_rel_bank(device=self.map_data.device)
+        return self.rel_bank
+
+
 class Engine:
     """The SLAM engine (reference `ElasticFusion`), on one torch device."""
 
@@ -80,25 +141,26 @@ class Engine:
         self,
         camera: CameraConfig,
         config: Optional[EngineConfig] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         self.camera = camera
         self.config = config or EngineConfig()
         self.device = torch.device(device)
-        cfg = self.config
-        if not cfg.open_loop:
-            raise NotImplementedError(
-                "loop closure is not ported yet: use EngineConfig(open_loop=True)"
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Engine runs on the card by default and no CUDA device is available: "
+                'pass device="cpu" to run on the CPU'
             )
         for mode in _UNPORTED_MODES:
-            if getattr(cfg, mode):
+            if getattr(self.config, mode):
                 raise NotImplementedError(f"EngineConfig.{mode} is not ported yet")
         self.frontends: Dict[str, Frontend] = {}
+        self.maps: Dict[str, MapBackend] = {}
         self.global_tick = 0
         self._compact_interval = 64
 
     def frontend(self, name: str, sensor_id: Optional[int] = None) -> Frontend:
-        """Create the camera frontend (with its own map)."""
+        """Create the camera frontend, in its own map."""
         if name in self.frontends:
             return self.frontends[name]
         if self.frontends:
@@ -118,7 +180,13 @@ class Engine:
             map_name=name,
         )
         self.frontends[name] = fe
+        self.maps[name] = MapBackend(
+            name=name, map_data=fe.state.map_data, map_count=fe.state.map_count, contexts=[name]
+        )
         return fe
+
+    def backend_of(self, name: str) -> MapBackend:
+        return self.maps[self.frontends[name].map_name]
 
     def _max_active(self) -> int:
         """Active-set cap for compaction: the windowed hot passes stream only
@@ -126,9 +194,36 @@ class Engine:
         cfg = self.config
         return cfg.active_window if cfg.active_window < cfg.max_surfels else 0
 
+    def _compact_now(self, fe: Frontend, be: MapBackend) -> None:
+        """Re-partition the map [inactive..., active...] now; after a closed
+        loop this brings the reactivated surfels into the active tail window
+        that tracking and fusion stream."""
+        m = sm.compact(
+            self.map_of(fe.map_name), time=float(self.global_tick),
+            time_delta=self.config.time_delta, max_active=self._max_active(),
+        )
+        be.map_data, be.map_count = m.data, m.count
+        fe.state = fe.state.replace(map_data=m.data, map_count=m.count)
+
+    def _on_loop_closed(self, fe: Frontend, be: MapBackend, graph: dg.DeformGraph) -> None:
+        """Everything an accepted deformation touches beyond the map: the
+        pose history and the fern keyframe poses go through the graph, then
+        the map is re-partitioned."""
+        n = len(fe.ts_log)
+        with record_function("loop.rewrite_poses"):
+            if n:
+                fe.pose_hist[:n] = dg.apply_to_poses(graph, fe.pose_hist[:n], fe.hist_times[:n])
+            if fe.fern_state is not None:
+                db = fe.fern_state.db
+                fe.fern_state = fe.fern_state._replace(
+                    db=db._replace(poses=dg.apply_to_poses(graph, db.poses, db.times))
+                )
+        with record_function("loop.compact"):
+            self._compact_now(fe, be)
+
     def map_of(self, map_name: str) -> sm.SurfelMap:
-        st = self.frontends[map_name].state
-        return sm.SurfelMap(data=st.map_data, count=st.map_count)
+        be = self.maps[map_name]
+        return sm.SurfelMap(data=be.map_data, count=be.map_count)
 
     def process_frame(
         self,
@@ -147,6 +242,7 @@ class Engine:
         if depth_raw is None:
             raise NotImplementedError("monocular depth prediction is not ported yet")
         fe = self.frontends[name]
+        cfg = self.config
         dev = self.device
         rgb = torch.as_tensor(rgb, device=dev)
         depth_raw = torch.as_tensor(depth_raw, device=dev).to(torch.float32)
@@ -155,24 +251,61 @@ class Engine:
             pose_in = torch.as_tensor(np.asarray(in_pose, np.float32), device=dev)
         else:
             pose_in = torch.eye(4, dtype=torch.float32, device=dev)
+        be = self.backend_of(name)
+        # install the backend's canonical map and the session tick
         fe.state = fe.state.replace(
-            tick=torch.full((), self.global_tick, dtype=torch.int64, device=dev)
+            map_data=be.map_data, map_count=be.map_count,
+            tick=torch.full((), self.global_tick, dtype=torch.int64, device=dev),
         )
         fe.state, stats = fe.step_fn(
-            fe.state, rgb, depth_raw, pose_in, use_in,
-            self.config.fusion_weight_multiplier, float(cluster),
+            fe.state, rgb, depth_raw, pose_in, use_in, cfg.fusion_weight_multiplier, float(cluster)
         )
+        be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
+        fe.record_pose(stats, self.global_tick)
         self.global_tick += 1
         fe.ts_log.append(timestamp)
         fe.stats_log.append(stats)
         fe.tick += 1
         if fe.tick % self._compact_interval == 0:
             # reclaims culled slots and re-partitions [inactive..., active...]
-            m = sm.compact(
-                self.map_of(name), time=float(self.global_tick),
-                time_delta=self.config.time_delta, max_active=self._max_active(),
-            )
-            fe.state = fe.state.replace(map_data=m.data, map_count=m.count)
+            self._compact_now(fe, be)
+        # lost-tracking state machine: the bad-frame counter lives on the
+        # device; poll it at the loop-check cadence from a frame two cadences
+        # back (long finished, so the read does not drain the queue), or
+        # every frame once lost
+        if cfg.relocalisation and (fe.tick % cfg.loop_check_interval == 0 or fe.lost):
+            lag = 0 if fe.lost else 2 * cfg.loop_check_interval
+            row = fe.stats_log[max(len(fe.stats_log) - 1 - lag, 0)]
+            fe.consecutive_bad = int(row[stepmod.STAT_CONSEC_BAD])
+            fe.lost = fe.consecutive_bad > 10
+            if fe.lost and self.relocalise(name, rgb, depth_raw):
+                fe.lost = False
+                fe.consecutive_bad = 0
+                fe.state = fe.state.replace(consec_bad=torch.zeros_like(fe.state.consec_bad))
+        # loop closure / place recognition at the loop-check cadence
+        if not cfg.open_loop and fe.tick % cfg.loop_check_interval == 0 and fe.tick > 2:
+            if fe.fern_state is None:
+                fe.fern_state = loopsmod.make_fern_state(fe.camera, cfg, device=dev)
+            tracking_healthy = not (cfg.relocalisation and (fe.lost or fe.consecutive_bad > 0))
+            if tracking_healthy:
+                with record_function("loop.ferns"):
+                    fe.fern_state, _, _, _ = loopsmod.update_ferns(
+                        fe.fern_state, rgb, depth_raw / cfg.depth_factor,
+                        preprocess.rgb_to_intensity(rgb), fe.state.pose,
+                        # the session tick: the surfel / deformation-node timeline
+                        self.global_tick, cfg.fern_thresh,
+                        factor=loopsmod.fern_factor(cfg), max_capacity=cfg.fern_db_max,
+                    )
+            if self.global_tick > cfg.time_delta and tracking_healthy:
+                fe.state, linfo, lgraph, be.rel_bank = loopsmod.try_local_loop(
+                    fe.state, fe.camera, cfg, rel_bank=be.get_rel_bank()
+                )
+                be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
+                fe.last_loop_info = linfo
+                if linfo.closed:
+                    fe.loops_closed += 1
+                    be.deforms += 1
+                    self._on_loop_closed(fe, be, lgraph)
         if not sync:
             return {}
         row = stats.cpu().numpy()
@@ -188,6 +321,47 @@ class Engine:
             "dropped": float(row[stepmod.STAT_DROPPED]),
             "surfels": float(row[stepmod.STAT_SURFELS]),
         }
+
+    def relocalise(self, name: str, rgb, depth_raw) -> bool:
+        """Fern relocalisation: query the fern DB with the current frame,
+        photometric-check the candidate, then verify it geometrically
+        (`loops.verify_recovery`); the accepted pose is the ICP-refined one."""
+        fe = self.frontends[name]
+        if fe.fern_state is None:
+            return False
+        cfg = self.config
+        dev = self.device
+        rgb = torch.as_tensor(rgb, device=dev)
+        depth_m = torch.as_tensor(depth_raw, device=dev).to(torch.float32) / cfg.depth_factor
+        ff = loopsmod.fern_factor(cfg)
+        db = fe.fern_state.db
+        rgb8 = fernmod.downsample_for_ferns(rgb.to(torch.float32), ff)
+        d8 = fernmod.downsample_for_ferns(depth_m, ff)
+        code = fernmod.encode(fe.fern_state.coder, rgb8, d8)
+        idx, dis = fernmod.best_match(db, code)
+        idx = idx.reshape(1)  # index_select: a 0-dim index would be read on the host
+        i8 = 0.299 * rgb8[..., 0] + 0.587 * rgb8[..., 1] + 0.114 * rgb8[..., 2]
+        photo = fernmod.photometric_check(
+            db.intensity.index_select(0, idx)[0], i8, db.depth.index_select(0, idx)[0], d8
+        )
+        # one read of the three gates
+        n_db, dis, photo = torch.stack([db.count.to(torch.float32), dis, photo]).tolist()
+        if n_db == 0 or dis > 0.9 or photo > cfg.photo_thresh:
+            return False
+        be = self.backend_of(name)
+        frame_pyr = odometry.build_frame_pyramid(
+            rgb, depth_m, fe.camera.intrinsics, cfg.pyramid_levels
+        )
+        pose, ok, _info = loopsmod.verify_recovery(
+            frame_pyr, db.poses.index_select(0, idx)[0], be.map_data, be.map_count, fe.camera, cfg
+        )
+        if not ok:
+            return False
+        fe.state = fe.state.replace(
+            pose=torch.as_tensor(pose, device=dev),
+            model_age=torch.full_like(fe.state.model_age, stepmod.MODEL_INVALID_AGE),
+        )
+        return True
 
     # ------------------------------------------------------------- exports
     def save_trajectory(self, name: str, path: str) -> None:

@@ -1,0 +1,98 @@
+"""Build and load the port's hand-written CUDA kernels (`csrc/*.cu`).
+
+Each source is compiled with `nvcc` for `sm_90a` into a shared library with
+a plain C interface under `build/kernels/`, named after the source and a
+hash of its bytes and the compiler flags, so an edited source is rebuilt
+and an unchanged one is reused.  Libraries are loaded with `ctypes`.
+
+Nothing here runs at import time: a kernel is built at its first use (or
+by `build(...)`, which starts one `nvcc` per missing library, all at once).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` at its current source lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def build(*names: str) -> Dict[str, Path]:
+    """Compile `csrc/<name>.cu` for each name whose library is missing, one
+    `nvcc` process per source, all started together; return each name's
+    library path.  Raises if any build fails."""
+    libs = {name: _library_path(name) for name in names}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        failed = []
+        for name, (tmp, cmd, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            else:
+                # atomic: a concurrent build never loads a partial file
+                os.replace(tmp, todo[name])
+    finally:
+        for tmp, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (built first if needed);
+    `declare` sets its functions' `argtypes`/`restype` on the first load."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)[name]))
+        declare(lib)
+        _LOADED[name] = lib
+    return lib

@@ -88,9 +88,10 @@ def sample_bilinear_local(
 
 
 def pixel_grid(
-    height: int, width: int, device: torch.device | str = "cpu"
+    height: int, width: int, device: torch.device | str = "cuda"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x, y) pixel coordinate images."""
+    """(x, y) pixel coordinate images, on the card unless `device` says
+    otherwise."""
     x = torch.arange(width, dtype=torch.float32, device=device).expand(height, width)
     y = torch.arange(height, dtype=torch.float32, device=device)[:, None].expand(height, width)
     return x, y

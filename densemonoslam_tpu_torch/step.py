@@ -24,7 +24,7 @@ from densemonoslam_tpu_torch.config import CameraIntrinsics, EngineConfig
 from densemonoslam_tpu_torch.mapping import fillin, fusion
 from densemonoslam_tpu_torch.mapping import keyframe as kfmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
-from densemonoslam_tpu_torch.ops import geometry, preprocess, splat
+from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, splat
 from densemonoslam_tpu_torch.tracking import odometry
 from densemonoslam_tpu_torch.utils import se3
 from densemonoslam_tpu_torch.utils.tensors import scalar
@@ -83,8 +83,9 @@ MODEL_INVALID_AGE = 1 << 20  # marks the stored model as unusable
 
 
 def init_state(
-    capacity: int, height: int, width: int, device: torch.device | str = "cpu"
+    capacity: int, height: int, width: int, device: torch.device | str = "cuda"
 ) -> SlamState:
+    """An empty state on `device` (the card unless the caller says otherwise)."""
     f32 = dict(dtype=torch.float32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
     return SlamState(
@@ -140,8 +141,6 @@ def make_step(
     cluster_id=0.0) -> (new_state, stats[29])`.  The map tensor of `state`
     is updated in place (the reference donates it)."""
     cfg = config
-    if cfg.relocalisation:
-        raise NotImplementedError("relocalisation (lost detection) is not ported yet")
     levels = cfg.pyramid_levels
     iterations = cfg.iterations_for_levels()
     pss = cfg.icp_weight_per_sensor
@@ -198,8 +197,22 @@ def make_step(
         new_pose = torch.where(use_in_pose, in_pose, new_pose)
         ok = first | tracking_ok | use_in_pose
         model_cover = (state.pred_depth > 0).to(torch.float32).mean()
-        # stays 0: counting badly tracked frames belongs to relocalisation
-        consec_bad = torch.zeros_like(state.consec_bad)
+        if cfg.relocalisation:
+            # lost detection: ICP error and every pose-covariance diagonal
+            # under 1e-4, and the map visible in the view; more than 10
+            # consecutive bad frames => lost.  The counter stays on the
+            # device; the engine polls it at the loop-check cadence.
+            cov_d = reductions.diag_inv_6x6(res.JtJ)
+            bad = (
+                (~tracking_ok | (res.icp_error > 1e-4) | torch.any(cov_d > 1e-4)
+                 | (model_cover < 0.1))
+                & ~first & ~use_in_pose
+            )
+            consec_bad = torch.where(bad, state.consec_bad + 1, 0)
+            lost = consec_bad > 10
+        else:
+            consec_bad = torch.zeros_like(state.consec_bad)
+            lost = torch.zeros((), dtype=torch.bool, device=dev)
         # velocity-based fusion weighting
         vel = torch.linalg.norm(new_pose[:3, 3] - state.pose[:3, 3])
         weight_mult = weight_mult * torch.clamp(1.0 - vel / 0.3, 0.25, 1.0)
@@ -228,6 +241,12 @@ def make_step(
         else:
             nid = torch.zeros((), dtype=torch.float32, device=dev)
             do_fuse = ok
+        # a lost camera must not corrupt the map; in relocalisation mode
+        # fusion also needs the model visible in the tracked frame, or a
+        # teleported camera would fuse a phantom copy of the scene
+        do_fuse = do_fuse & ~lost
+        if cfg.relocalisation:
+            do_fuse = do_fuse & ((model_cover >= 0.1) | first)
 
         # ---------------- render + fuse + clean (conditional) ----------
         d_pose = torch.where(

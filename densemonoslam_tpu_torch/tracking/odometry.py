@@ -105,6 +105,28 @@ def build_frame_pyramid(
     )
 
 
+def frame_pyramid_from_maps(
+    intensity: torch.Tensor, vmap0: torch.Tensor, nmap0: torch.Tensor, levels: int
+) -> FramePyramid:
+    """A FramePyramid from rendered maps, for a prediction that plays the
+    live frame (model-to-model loop-closure tracking); vertex/normal maps
+    are decimated, not re-projected."""
+    ints = preprocess.build_pyramid(intensity, levels, depth=False)
+    vmaps, nmaps, gxs, gys = [], [], [], []
+    vm, nm = vmap0, nmap0
+    for lv in range(levels):
+        vmaps.append(vm)
+        nmaps.append(nm)
+        gx, gy = preprocess.sobel_gradients(ints[lv])
+        gxs.append(gx)
+        gys.append(gy)
+        vm, nm = warp.decimate(vm, 2), warp.decimate(nm, 2)
+    return FramePyramid(
+        intensity=tuple(ints), vmap=tuple(vmaps), nmap=tuple(nmaps),
+        grad_x=tuple(gxs), grad_y=tuple(gys),
+    )
+
+
 def _so3_prealign(
     model: ModelPyramid, frame: FramePyramid, intr_top: CameraIntrinsics, R0: torch.Tensor
 ) -> torch.Tensor:
@@ -357,3 +379,11 @@ def track(
         icp_error=icp_err, icp_inliers=icp_inl, rgb_error=rgb_err, rgb_inliers=rgb_inl,
         JtJ=JtJ, failed=failed,
     )
+
+
+def covariance(result: TrackResult) -> torch.Tensor:
+    """Pose covariance, the inverse of the final combined JtJ; the loop and
+    relocalisation acceptance gates read its diagonal."""
+    eye = torch.eye(6, dtype=result.JtJ.dtype, device=result.JtJ.device)
+    # `inv_ex`: `inv` checks for singularity on the host, a device sync
+    return torch.linalg.inv_ex(result.JtJ + 1e-12 * eye).inverse

@@ -125,3 +125,19 @@ def rotate_vectors(T: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def apply_update(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative GN update ``T <- exp(xi) @ T``."""
     return se3_exp(xi) @ T
+
+
+def orthonormalise(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation onto SO(3) via SVD, with the determinant fix
+    that keeps the result a proper rotation."""
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return (u * d[..., None, :]) @ vt
+
+
+def pose_distance(Ta: torch.Tensor, Tb: torch.Tensor):
+    """(rotation angle, translation distance) between two poses."""
+    dT = se3_inverse(Ta) @ Tb
+    w = so3_log(dT[:3, :3])
+    return torch.linalg.norm(w), torch.linalg.norm(dT[:3, 3])

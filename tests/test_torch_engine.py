@@ -1,7 +1,8 @@
 """The PyTorch port's `Engine` alone, held to the bounds of
 `tests/test_engine.py` on the same synthetic fixture (open loop, always
 fuse): ATE < 10 mm over 25 frames with > 10000 surfels, ATE < 8 mm over 15
-frames, ground-truth injection ATE < 1e-6, and the exports."""
+frames, ground-truth injection ATE < 1e-6, and the exports; the modes that
+are still unported raise, and the entry points default to the card."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,8 @@ from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.eval import ate_rmse
 from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.io.writers import load_ply
+from densemonoslam_tpu_torch.ops.warp import pixel_grid
+from densemonoslam_tpu_torch.step import init_state
 
 torch.set_num_threads(2)
 
@@ -77,20 +80,37 @@ def test_engine_exports(run25, tmp_path):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(open_loop=False), dict(relocalisation=True), dict(orb_tracking=True),
-     dict(hybrid_loops=True), dict(predict_depth=True)],
-    ids=["closed-loop", "relocalisation", "orb", "hybrid", "predict-depth"],
+    [dict(orb_tracking=True), dict(hybrid_loops=True), dict(predict_depth=True)],
+    ids=["orb", "hybrid", "predict-depth"],
 )
 def test_engine_unported_modes_raise(override):
     with pytest.raises(NotImplementedError):
-        Engine(CameraConfig.tum_default(), EngineConfig(**{**BASE, **override}))
+        Engine(CameraConfig.tum_default(), EngineConfig(**{**BASE, **override}), device="cpu")
 
 
 def test_engine_second_frontend_and_missing_depth_raise(seq):
-    eng = Engine(seq.camera, EngineConfig(**BASE))
+    eng = Engine(seq.camera, EngineConfig(**BASE), device="cpu")
     eng.frontend("cam0")
     with pytest.raises(NotImplementedError):
         eng.frontend("cam1")
     rgb, _ = seq.frame(0)
     with pytest.raises(NotImplementedError):
         eng.process_frame("cam0", rgb, None, 0.0)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: Engine(CameraConfig.tum_default(), EngineConfig(**BASE)),
+        lambda: init_state(1 << 10, 12, 16),
+        lambda: pixel_grid(12, 16),
+    ],
+    ids=["engine", "init_state", "pixel_grid"],
+)
+def test_entry_points_default_to_cuda(make):
+    """Without `device=` the entry points run on the card: with no card
+    they raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        make()

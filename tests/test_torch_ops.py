@@ -63,6 +63,21 @@ def test_se3_exp_log_inverse_match(rng, scale):
               jse3.apply_update(jnp.asarray(T), jnp.asarray(xi)))
 
 
+@pytest.mark.parametrize("noise", [0.0, 0.05])
+def test_se3_orthonormalise_and_pose_distance_match(noise):
+    """SVD projection onto SO(3) (with the determinant fix; batched) and the
+    (angle, distance) between poses, on rotations perturbed by `noise`."""
+    rng = np.random.default_rng(7)
+    Ts = [np.array(jse3.se3_exp(jnp.asarray(rng.normal(0, 0.5, 6).astype(np.float32))))
+          for _ in range(4)]
+    R = np.stack([T[:3, :3] for T in Ts]) + noise * rng.normal(size=(4, 3, 3)).astype(np.float32)
+    close(tse3.orthonormalise(torch.from_numpy(R)), jse3.orthonormalise(jnp.asarray(R)))
+    for Ta, Tb in zip(Ts[:-1], Ts[1:]):
+        for t, j in zip(tse3.pose_distance(torch.from_numpy(Ta), torch.from_numpy(Tb)),
+                        jse3.pose_distance(jnp.asarray(Ta), jnp.asarray(Tb))):
+            close(t, j)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_warp_decimate_and_shift_match(rng, k):
     img = rng.normal(0, 1, (13, 17, 3)).astype(np.float32)
@@ -70,7 +85,7 @@ def test_warp_decimate_and_shift_match(rng, k):
     close(twarp.decimate(torch.from_numpy(img[..., 0]), k), jwarp.decimate(jnp.asarray(img[..., 0]), k))
     for dy, dx in [(0, 0), (k, -1), (-k, 2), (20, 0)]:
         close(twarp.shift(torch.from_numpy(img), dy, dx), jwarp.shift(jnp.asarray(img), dy, dx))
-    x, y = twarp.pixel_grid(13, 17)
+    x, y = twarp.pixel_grid(13, 17, "cpu")
     jx, jy = jwarp.pixel_grid(13, 17)
     close(x, jx)
     close(y, jy)

@@ -116,3 +116,37 @@ def test_ten_frame_run_matches_reference(runs):
         assert np.linalg.norm(dT[:3, 3]) < 5e-4
         assert np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1)) < 1e-3
     np.testing.assert_allclose(tst[:, tstep.STAT_SURFELS], jst[:, tstep.STAT_SURFELS], rtol=0.01)
+
+
+@pytest.fixture(scope="module")
+def reloc_fns():
+    cfg = {**CFG, "relocalisation": True}
+    i = SyntheticSequence(num_frames=40, radius=0.35, max_angle=0.3).camera.intrinsics
+    return (jstep.make_step(JIntr(i.fx, i.fy, i.cx, i.cy), H, W, JCfg(**cfg)),
+            tstep.make_step(TIntr(i.fx, i.fy, i.cx, i.cy), H, W, TCfg(**cfg)))
+
+
+@pytest.mark.parametrize(
+    "consec_bad,model_age",
+    [(5, 0), (10, jstep.MODEL_INVALID_AGE)],
+    ids=["tracked-resets-counter", "invalid-model-trips-lost"],
+)
+def test_relocalisation_step_from_shared_state(runs, reloc_fns, consec_bad, model_age):
+    """The step's relocalisation branch from the shared state: a tracked
+    frame resets the device-side bad-frame counter; with the stored model
+    invalid the frame is bad, the counter passes 10 (lost) and fusion is
+    gated off.  Flags, counts and the counter exact; all stats within the
+    one-step tolerance above."""
+    jfn, tfn = reloc_fns
+    d = {**runs["shared"], "consec_bad": np.int32(consec_bad), "model_age": np.int32(model_age)}
+    f = SHARED + 1
+    _, jst = _jax_call(jfn, _jax_state(d), *runs["frames"][f], f)
+    _, tst = _torch_call(tfn, tstep.state_from_numpy(d, "cpu"), *runs["frames"][f], f)
+    exact = [tstep.STAT_TRACK_OK, tstep.STAT_FUSED, tstep.STAT_ADDED, tstep.STAT_SURFELS,
+             tstep.STAT_KEYFRAMES, tstep.STAT_CONSEC_BAD]
+    np.testing.assert_array_equal(tst[exact], jst[exact])
+    np.testing.assert_allclose(tst, jst, rtol=1e-3, atol=1e-5)
+    expect_bad = consec_bad + 1 if model_age else 0
+    assert tst[tstep.STAT_CONSEC_BAD] == expect_bad
+    if model_age:
+        assert tst[tstep.STAT_FUSED] == 0

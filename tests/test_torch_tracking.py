@@ -139,3 +139,24 @@ def test_track_matches_reference(setup, row_stride):
     assert np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1)) < 1e-4
     assert abs(float(rt.icp_inliers) - float(rj.icp_inliers)) <= 0.001 * float(rj.icp_inliers)
     assert np.linalg.norm(At[:3, 3] - setup["rel"][:3, 3]) < 2e-3
+
+
+def test_frame_pyramid_from_maps_and_covariance_match(setup):
+    """A rendered-style prediction (frame 5's level-0 maps) as the live frame
+    of model-to-model tracking (the local loop's `use_so3=False` call):
+    the pyramid within the tolerances above, the pose within 1e-4 and the
+    covariance diagonal within rtol 1e-3 (the inverse of a 6x6 JtJ summed
+    in another order)."""
+    jf0 = setup["jf"]
+    jp = jodo.frame_pyramid_from_maps(jf0.intensity[0], jf0.vmap[0], jf0.nmap[0], LEVELS)
+    tp = todo.frame_pyramid_from_maps(_t(jf0.intensity[0]), _t(jf0.vmap[0]), _t(jf0.nmap[0]),
+                                      LEVELS)
+    for name in ("vmap", "nmap", "intensity", "grad_x", "grad_y"):
+        for a, b in zip(getattr(tp, name), getattr(jp, name)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
+    kw = dict(iterations=(4, 5, 10), icp_weight=10.0, use_so3=False)
+    rj = jodo.track(setup["jm"], jp, jnp.asarray(setup["A0"]), setup["ji"], **kw)
+    rt = todo.track(setup["tm"], tp, _t(setup["A0"]), setup["ti"], **kw)
+    np.testing.assert_allclose(rt.A.numpy(), np.asarray(rj.A), atol=1e-4)
+    np.testing.assert_allclose(np.diag(todo.covariance(rt).numpy()),
+                               np.diag(np.asarray(jodo.covariance(rj))), rtol=1e-3)
