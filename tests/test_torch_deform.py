@@ -199,9 +199,8 @@ def test_optimise_matches_reference(rng):
     1e-4 m and the three error stats within rtol 1e-3; node parameters
     within 2e-3, since nodes away from the constraints are held only by the
     regularisers, where CG's f32 dot products summed in another order over
-    3 x 64 iterations move them most (over 8 random problems: points 3.3e-5,
-    stats 2.6e-4 relative, parameters 5.4e-4); the result lies on the same
-    side of the loop's acceptance gates."""
+    3 x 64 iterations move them most; the result lies on the same side of
+    the loop's acceptance gates."""
     g, cons, frozen, rel = _problem(rng)
     jcons = jdg.Constraint(**{k: jnp.asarray(v) for k, v in cons.items()})
     jrel = jdg.RelConstraint(**{k: jnp.asarray(v) for k, v in rel.items()})

@@ -3,8 +3,9 @@ JAX package's, from one shared state: the two-epoch revisit of
 `tests/test_loops.py::test_local_loop_corrects_drift` (ground-truth poses,
 then the same views again 100 ticks later with an 8 cm drift), built by
 the port's engine on the CPU and handed to both packages as numpy arrays.
-The config is that test's with 2 pyramid levels instead of 3, which halves
-the JAX loop program's compile time (~45 s -> ~25 s on a CPU)."""
+The config is that test's with 2 pyramid levels instead of 3, which
+shortens the compile of the JAX package's loop program (its tracking
+unrolls per level)."""
 
 import jax
 import jax.numpy as jnp
