@@ -224,6 +224,7 @@ def phase_slam() -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     gram.LAUNCHES = 0  # count only the main path's launches from here
+    deform.LAUNCHES = 0
     for i in range(N_WARMUP):
         eng.process_frame("cam0", *frames[i], float(i), sync=False)
     torch.cuda.synchronize()

@@ -213,12 +213,12 @@ def test_optimise_matches_reference(rng):
     np.testing.assert_allclose(tg2.A.numpy(), np.asarray(jg2.A), atol=2e-3)
     np.testing.assert_allclose(tg2.t.numpy(), np.asarray(jg2.t), atol=2e-3)
     np.testing.assert_allclose([float(x) for x in ts], [float(x) for x in js], rtol=1e-3, atol=1e-7)
-    for src, times in ((cons["src"], cons["time"]), (rel["src"], rel["src_time"]),
-                       (rel["dst"], rel["dst_time"])):
-        np.testing.assert_allclose(
-            tdg.deform_points(tg2, torch.from_numpy(src), torch.from_numpy(times)).numpy(),
-            np.asarray(jdg.deform_points(jg2, jnp.asarray(src), jnp.asarray(times))), atol=1e-4,
-        )
+    src = np.concatenate([cons["src"], rel["src"], rel["dst"]])
+    times = np.concatenate([cons["time"], rel["src_time"], rel["dst_time"]])
+    np.testing.assert_allclose(
+        tdg.deform_points(tg2, torch.from_numpy(src), torch.from_numpy(times)).numpy(),
+        np.asarray(jdg.deform_points(jg2, jnp.asarray(src), jnp.asarray(times))), atol=1e-4,
+    )
     for thresh in (0.01, 0.02):
         assert (float(ts.mean_cons_error) <= thresh) == (float(js.mean_cons_error) <= thresh)
 

@@ -143,10 +143,12 @@ def test_track_matches_reference(setup, row_stride):
 
 def test_frame_pyramid_from_maps_and_covariance_match(setup):
     """A rendered-style prediction (frame 5's level-0 maps) as the live frame
-    of model-to-model tracking (the local loop's `use_so3=False` call):
-    the pyramid within the tolerances above, the pose within 1e-4 and the
-    covariance diagonal within rtol 1e-3 (the inverse of a 6x6 JtJ summed
-    in another order)."""
+    of model-to-model tracking: the pyramid within the tolerances above, the
+    pose within 1e-4 and the covariance diagonal within rtol 1e-3 (the
+    inverse of a 6x6 JtJ summed in another order).  Tracked with the
+    arguments of the test above, so the JAX package's compiled `track` is
+    reused; the local loop's `use_so3=False` call is held by
+    `tests/test_torch_loops.py`."""
     jf0 = setup["jf"]
     jp = jodo.frame_pyramid_from_maps(jf0.intensity[0], jf0.vmap[0], jf0.nmap[0], LEVELS)
     tp = todo.frame_pyramid_from_maps(_t(jf0.intensity[0]), _t(jf0.vmap[0]), _t(jf0.nmap[0]),
@@ -154,7 +156,7 @@ def test_frame_pyramid_from_maps_and_covariance_match(setup):
     for name in ("vmap", "nmap", "intensity", "grad_x", "grad_y"):
         for a, b in zip(getattr(tp, name), getattr(jp, name)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
-    kw = dict(iterations=(4, 5, 10), icp_weight=10.0, use_so3=False)
+    kw = dict(iterations=(4, 5, 10), icp_weight=10.0, row_stride=1)
     rj = jodo.track(setup["jm"], jp, jnp.asarray(setup["A0"]), setup["ji"], **kw)
     rt = todo.track(setup["tm"], tp, _t(setup["A0"]), setup["ti"], **kw)
     np.testing.assert_allclose(rt.A.numpy(), np.asarray(rj.A), atol=1e-4)
