@@ -80,7 +80,7 @@ JAX_CLOSED = dict(ate_mm=115.06, loops_timed=4, loops_all=5, surfels=1048575, fe
 # multiply-adds and sums its 4 nodes in registers): f32 rounding over ~20
 # dependent operations at coordinates <= 10 m, well inside 1e-4
 DEFORM_TOL = 1e-4
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, f32 FLOP/s
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 DEFORM_FLOP_PER_ROW = 330  # 20 candidates x 8 + weights, blend and apply
 
