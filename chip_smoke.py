@@ -26,7 +26,8 @@ Phases (any failure raises, so the exit code is not 0):
    its last accepted closure, times beside the bound; then the leg's first
    two loop checks again under `torch.profiler`, timed by stage;
 7. relocalisation at 640x480: 16 ground-truth frames, a teleport, 30 frames;
-   the pose must come back within 1 m.
+   the pose must come back within 1 m, and an accepted relocalisation must
+   have launched K1.
 
 The last three lines are the card's name and power limit, a JSON summary of
 the kernels and the JSON verdict.
@@ -48,7 +49,6 @@ import densemonoslam_tpu_torch  # noqa: F401  (sets the f32 matmul switches)
 from densemonoslam_tpu_torch.config import (
     CameraConfig, CameraIntrinsics, EngineConfig, FrameResolution,
 )
-from densemonoslam_tpu_torch import loops as loopsmod
 from densemonoslam_tpu_torch import step as stepmod
 from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.eval import ate_rmse
@@ -384,46 +384,37 @@ def phase_closed_loop() -> dict:
     eng = Engine(camera, cfg)
     fe = eng.frontend("cam0")
     fe.pose = seq.gt_pose(0).astype(np.float32)
-    closures = []  # (frame index, graph) of each accepted closure
-    orig_try = loopsmod.try_local_loop
-
-    def recording_try(*a, **k):
-        out = orig_try(*a, **k)
-        if out[1].closed:
-            closures.append((len(fe.ts_log) - 1, out[2]))
-        return out
-
-    loopsmod.try_local_loop = recording_try
+    closed = []  # per frame: did it close a loop
+    for i in range(CL_WARMUP):
+        c0 = fe.loops_closed
+        eng.process_frame("cam0", *frames[i % LAP], float(i), sync=False)
+        closed.append(fe.loops_closed > c0)
+    torch.cuda.synchronize()
+    loops_pre = fe.loops_closed
+    gram.LAUNCHES = 0  # count only this path's launches from here
+    deform.LAUNCHES = 0
+    walls, syncs, checks = [], [], []
+    torch.cuda.set_sync_debug_mode("warn")
     try:
-        for i in range(CL_WARMUP):
-            eng.process_frame("cam0", *frames[i % LAP], float(i), sync=False)
-        torch.cuda.synchronize()
-        loops_pre = fe.loops_closed
-        gram.LAUNCHES = 0  # count only this path's launches from here
-        deform.LAUNCHES = 0
-        walls, syncs, checks, closed = [], [], [], []
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                t_start = time.perf_counter()
-                for i in range(CL_WARMUP, CL_WARMUP + CL_TIMED):
-                    n0, c0 = len(caught), fe.loops_closed
-                    t0 = time.perf_counter()
-                    eng.process_frame("cam0", *frames[i % LAP], float(i), sync=False)
-                    walls.append(time.perf_counter() - t0)
-                    syncs.append(sum("synchroniz" in str(w.message) for w in caught[n0:]))
-                    checks.append(fe.tick % cfg.loop_check_interval == 0 and fe.tick > 2)
-                    closed.append(fe.loops_closed > c0)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t_start
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t_start = time.perf_counter()
+            for i in range(CL_WARMUP, CL_WARMUP + CL_TIMED):
+                n0, c0 = len(caught), fe.loops_closed
+                t0 = time.perf_counter()
+                eng.process_frame("cam0", *frames[i % LAP], float(i), sync=False)
+                walls.append(time.perf_counter() - t0)
+                syncs.append(sum("synchroniz" in str(w.message) for w in caught[n0:]))
+                checks.append(fe.tick % cfg.loop_check_interval == 0 and fe.tick > 2)
+                closed.append(fe.loops_closed > c0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t_start
     finally:
-        loopsmod.try_local_loop = orig_try
+        torch.cuda.set_sync_debug_mode("default")
     launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
     walls, syncs = 1e3 * np.array(walls), np.array(syncs, float)
-    checks, closed = np.array(checks), np.array(closed)
+    closed_all = np.array(closed)
+    checks, closed = np.array(checks), closed_all[CL_WARMUP:]
     loops_timed = fe.loops_closed - loops_pre
     stats = torch.stack(fe.stats_log).cpu().numpy()
     est = [p for _, p in fe.trajectory]
@@ -453,7 +444,7 @@ def phase_closed_loop() -> dict:
     # keeps the corrected pose untracked and re-renders; any other frame
     # whose tracking failed means the camera was lost
     failed = set(np.nonzero(stats[:, stepmod.STAT_TRACK_OK] != 1.0)[0].tolist())
-    after_closure = {i + 1 for i, _ in closures}
+    after_closure = {i + 1 for i in np.nonzero(closed_all)[0].tolist()}
     log(f"[closed] frames not tracked: {sorted(failed)}; frames right after a closure: "
         f"{sorted(after_closure)}")
     if not failed <= after_closure:
@@ -469,7 +460,7 @@ def phase_closed_loop() -> dict:
     if not ate < 0.250:
         raise AssertionError(f"ATE {ate * 1e3:.2f} mm >= 250 mm")
     m = eng.map_of("cam0")
-    return dict(launches=launches, graph=closures[-1][1], data=m.data, count=m.count,
+    return dict(launches=launches, graph=fe.last_loop_graph, data=m.data, count=m.count,
                 frames=frames)
 
 
@@ -502,8 +493,9 @@ def phase_closure_profile(frames) -> None:
                 f"{dev / 1e3 / e.count:8.2f} ms/call")
 
 
-def phase_relocalisation() -> None:
-    """`tests/test_engine.py`'s relocalisation scenario at 640x480."""
+def phase_relocalisation() -> int:
+    """`tests/test_engine.py`'s relocalisation scenario at 640x480; returns
+    the Gram launches of the frames after the teleport."""
     camera = _camera()
     seq = SyntheticSequence(camera=camera, num_frames=40, radius=0.35, max_angle=0.3)
     cfg = EngineConfig(
@@ -522,24 +514,34 @@ def phase_relocalisation() -> None:
     fe.pose = bad
     fe.state = fe.state.replace(model_age=torch.full_like(fe.state.model_age, 1 << 20))
     calls = []
+    in_reloc = []  # gram launches inside each relocalisation attempt
     relocalise = eng.relocalise
 
     def counting(*a, **k):
+        before = gram.LAUNCHES
         calls.append(relocalise(*a, **k))
+        in_reloc.append(gram.LAUNCHES - before)
         return calls[-1]
 
     eng.relocalise = counting
+    gram.LAUNCHES = 0  # count only this path's launches from here
     for i in range(30):
         eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
+    launches = gram.LAUNCHES
     err = float(np.linalg.norm(fe.pose[:3, 3] - seq.gt_pose(15)[:3, 3]))
     log(f"[reloc] {ferns} fern keyframes; {len(calls)} relocalisation attempts, "
         f"{sum(calls)} accepted; final pose {err:.3f} m from the map's last ground-truth pose")
+    log(f"[reloc] gram launches: {launches} in the 30 frames after the teleport, "
+        f"{sum(in_reloc)} of them inside relocalisation attempts")
     if ferns < 1:
         raise AssertionError("no fern keyframe stored")
     if not any(calls):
         raise AssertionError(f"no relocalisation accepted ({len(calls)} attempts)")
+    if sum(launches for ok, launches in zip(calls, in_reloc) if ok) == 0:
+        raise AssertionError("an accepted relocalisation launched no gram kernel")
     if not err < 1.0:
         raise AssertionError(f"pose still {err:.2f} m from the map")
+    return launches
 
 
 def main() -> int:
@@ -557,7 +559,7 @@ def main() -> int:
     del closed["data"], closed["graph"]
     phase_closure_profile(closed.pop("frames"))
     torch.cuda.empty_cache()
-    phase_relocalisation()
+    reloc_launches = phase_relocalisation()
     g = k1["times"][GRAM_SHAPES[0]]
     log(smi)
     print(json.dumps({"kernels": [
@@ -566,7 +568,7 @@ def main() -> int:
             "route": "cuda",
             "source": "densemonoslam_tpu_torch/csrc/gram.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
-            "launches": slam["launches"] + closed["launches"]["gram"],
+            "launches": slam["launches"] + closed["launches"]["gram"] + reloc_launches,
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
             "plain_ms": g["plain_ms"],

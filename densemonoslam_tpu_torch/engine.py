@@ -61,6 +61,7 @@ class Frontend:
     fern_state: Optional[loopsmod.FernLoopState] = None
     loops_closed: int = 0
     last_loop_info: Optional[loopsmod.LoopInfo] = None
+    last_loop_graph: Optional[dg.DeformGraph] = None  # of the last accepted closure
     lost: bool = False
     consecutive_bad: int = 0
 
@@ -121,9 +122,7 @@ class MapBackend:
     name: str
     map_data: Optional[torch.Tensor] = None  # [N+1, 16]
     map_count: Optional[torch.Tensor] = None  # []
-    contexts: List[str] = dataclasses.field(default_factory=list)
     deforms: int = 0
-    dropped: int = 0  # surfels lost to capacity clamps when maps merge
     # carried relative constraints: emitted by accepted local deformations,
     # consumed by every later deformation of this map
     rel_bank: Optional[loopsmod.RelBank] = None
@@ -181,7 +180,7 @@ class Engine:
         )
         self.frontends[name] = fe
         self.maps[name] = MapBackend(
-            name=name, map_data=fe.state.map_data, map_count=fe.state.map_count, contexts=[name]
+            name=name, map_data=fe.state.map_data, map_count=fe.state.map_count
         )
         return fe
 
@@ -209,6 +208,7 @@ class Engine:
         """Everything an accepted deformation touches beyond the map: the
         pose history and the fern keyframe poses go through the graph, then
         the map is re-partitioned."""
+        fe.last_loop_graph = graph
         n = len(fe.ts_log)
         with record_function("loop.rewrite_poses"):
             if n:

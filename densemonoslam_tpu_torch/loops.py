@@ -330,10 +330,6 @@ def update_ferns(
     return FernLoopState(coder=fs.coder, db=db), code, idx, dis
 
 
-def fern_recovery_pose(fs: FernLoopState, idx: int) -> np.ndarray:
-    return fs.db.poses[idx].cpu().numpy()
-
-
 def verify_recovery(
     frame_pyr: odometry.FramePyramid,
     recovery: torch.Tensor,  # [4,4] candidate camera pose in the map's frame

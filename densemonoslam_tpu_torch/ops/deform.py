@@ -107,14 +107,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.deform_map_f32.restype = ctypes.c_int
     lib.deform_max_nodes.argtypes = []
     lib.deform_max_nodes.restype = ctypes.c_int
+    if lib.deform_max_nodes() != MAX_NODES:
+        raise RuntimeError("csrc/deform.cu and ops/deform.py disagree on MAX_NODES")
 
 
 def deform_map_cuda(data: torch.Tensor, count: torch.Tensor, graph) -> torch.Tensor:
     """Launch K2 on PyTorch's current stream (no synchronise); returns `data`."""
     global LAUNCHES
     lib = cuda_build.load("deform", _declare)
-    if lib.deform_max_nodes() != MAX_NODES:
-        raise RuntimeError("csrc/deform.cu and ops/deform.py disagree on MAX_NODES")
     f32 = dict(dtype=torch.float32)
     count64 = count.to(torch.int64)
     pos = graph.pos.to(**f32).contiguous()
