@@ -9,7 +9,9 @@ Phases (any failure raises, so the exit code is not 0):
    process per source, started together);
 1. kernel K1 (Gram reduction) against its plain PyTorch version at the
    tracking shapes: f64 agreement, zero-padding invariance, bit-identical
-   reruns, and both times per shape beside the bound;
+   reruns, one device kernel per call, and per shape the device times of
+   the kernel, its previous design (`csrc/prev/gram.cu`), the plain version
+   and cuBLAS beside the bound, and host call times;
 2. the open-loop path: `Engine()` on the 640x480 synthetic orbit at the
    headline configuration (1<<20-surfel map, 4 pyramid levels, row stride 2,
    NID keyframing, open loop): 4 warm-up + 30 timed frames, with tracking,
@@ -18,7 +20,9 @@ Phases (any failure raises, so the exit code is not 0):
    device-busy share, device operations per frame and the top operations;
 4. kernel K2 (whole-map deformation) against its plain version on a
    1<<20-row map and a 512-node graph: error, untouched bytes, passthrough,
-   bit-identical reruns, times beside the bound;
+   bit-identical reruns, times of the kernel, its previous design
+   (`csrc/prev/deform.cu`) and the plain version beside the bound, and the
+   share of warps on the kernel's uniform path;
 5. the closed-loop path: the JAX bench's closed-loop leg (revisit lap of 40
    frames, 45 warm-up + 60 timed frames, loop checks every 8 frames) with
    loops, K2 launches, host syncs, ATE and map checks;
@@ -27,7 +31,15 @@ Phases (any failure raises, so the exit code is not 0):
    two loop checks again under `torch.profiler`, timed by stage;
 7. relocalisation at 640x480: 16 ground-truth frames, a teleport, 30 frames;
    the pose must come back within 1 m, and an accepted relocalisation must
-   have launched K1.
+   have launched K1; K1's launches per frame;
+8. K1 at the other shapes the three legs launched it at, and per shape its
+   launches over the legs times (device time - bound).
+
+Each leg sets every launch count to 0 just before it and reads the counts
+just after; K1's counts are also kept per (P, C).  A kernel's time is the
+CUDA-event time of back-to-back calls queued behind a spin kernel (the
+kernels and the gaps between them); its launches per call are counted in a
+CUDA graph of one call.
 
 The last three lines are the card's name and power limit, a JSON summary of
 the kernels and the JSON verdict.
@@ -35,6 +47,7 @@ the kernels and the JSON verdict.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -82,6 +95,7 @@ JAX_CLOSED = dict(ate_mm=115.06, loops_timed=4, loops_all=5, surfels=1048575, fe
 DEFORM_TOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+SPIN_HZ = 1.98e9  # the H100 SXM's top SM clock: `torch.cuda._sleep` spins in cycles
 DEFORM_FLOP_PER_ROW = 330  # 20 candidates x 8 + weights, blend and apply
 
 
@@ -113,23 +127,73 @@ def _device_us(prof) -> tuple[float, int]:
 
 
 def device_ms(fn, n: int = 50) -> float:
-    """Mean device time of the kernels one call launches, from
-    `torch.profiler` over `n` back-to-back calls.  A window in which the
-    profiler recorded no device activity at all is measured again (up to
-    three times), never reported as 0."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Mean device time of one call over `n` back-to-back calls, from CUDA
+    events.  A spin kernel first holds the stream for four times as long as
+    the host takes to queue the `n` calls, so the events time the device
+    alone (the kernels and the gaps between them), not the host's launch
+    rate."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = _device_us(prof)[0]
-        if us > 0:
-            return us / n / 1e3
-    raise RuntimeError("torch.profiler recorded no device activity in three windows")
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(4 * n * host_s * SPIN_HZ, 2**62)))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _prev_gram_lib():
+    def declare(lib):
+        lib.gram_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.gram_f32.restype = ctypes.c_int
+        lib.gram_rows_per_block.restype = ctypes.c_int
+    return cuda_build.load("prev/gram", declare)
+
+
+def prev_gram(M: torch.Tensor) -> torch.Tensor:
+    """K1's previous design (`csrc/prev/gram.cu`: two launches, C x C
+    entries per block), called as its own wrapper called it."""
+    lib = _prev_gram_lib()
+    P, C = M.shape
+    rows = lib.gram_rows_per_block()
+    partials = torch.empty(((P + rows - 1) // rows, C, C), dtype=torch.float32, device=M.device)
+    out = torch.empty((C, C), dtype=torch.float32, device=M.device)
+    with torch.cuda.device(M.device):
+        stream = torch.cuda.current_stream(M.device).cuda_stream
+        err = lib.gram_f32(M.data_ptr(), partials.data_ptr(), out.data_ptr(), P, C, stream)
+    if err != 0:
+        raise RuntimeError(f"previous gram kernel launch failed: cudaError {err}")
+    return out
+
+
+def prev_deform(data: torch.Tensor, count: torch.Tensor, graph) -> torch.Tensor:
+    """K2's previous design (`csrc/prev/deform.cu`: one thread per row, the
+    node table staged by every block), called as its own wrapper called it."""
+    def declare(lib):
+        lib.deform_map_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, *[ctypes.c_void_p] * 6, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.deform_map_f32.restype = ctypes.c_int
+    lib = cuda_build.load("prev/deform", declare)
+    count64 = count.to(torch.int64)
+    valid = graph.valid.to(torch.uint8).contiguous()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = lib.deform_map_f32(
+            data.data_ptr(), data.shape[0] - 1, count64.data_ptr(), graph.pos.data_ptr(),
+            graph.time.data_ptr(), valid.data_ptr(), graph.A.data_ptr(), graph.t.data_ptr(),
+            graph.pos.shape[0], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"previous deform kernel launch failed: cudaError {err}")
+    return data
 
 
 def phase_device() -> str:
@@ -144,7 +208,7 @@ def phase_device() -> str:
     log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libs = cuda_build.build("gram", "deform")
+    libs = cuda_build.build("gram", "deform", "prev/gram", "prev/deform")
     log(f"[phase 0] built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -157,18 +221,24 @@ def bound_ms(n_bytes: float, n_flop: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_gram() -> dict:
+def phase_gram(shapes=GRAM_SHAPES) -> dict:
+    """K1 at each (P, C): f64 agreement, bit-identical reruns and zero-padding
+    invariance; device times of the kernel, its previous design, the plain
+    version and cuBLAS beside the bound; device kernels per call (must be 1)
+    and host call times."""
     gen = np.random.default_rng(0)
     worst = 0.0
     times = {}
-    for P, C in GRAM_SHAPES:
+    for P, C in shapes:
         M = torch.from_numpy(gen.normal(0, 1, (P, C)).astype(np.float32)).cuda()
         out = gram.gram(M)
         again = gram.gram(M)
         padded = gram.gram(torch.cat([M, torch.zeros(3000, C, device="cuda")]))
+        prev = prev_gram(M)
         torch.cuda.synchronize()
         ref = gram.gram_reference(M.double())
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **GRAM_TOL)
+        np.testing.assert_allclose(prev.cpu().numpy(), ref.cpu().numpy(), **GRAM_TOL)
         err = float((out.double() - ref).abs().max())
         worst = max(worst, err)
         if not torch.equal(out, again):
@@ -176,16 +246,37 @@ def phase_gram() -> dict:
         if not torch.equal(out, padded):
             raise AssertionError(f"gram {P}x{C}: zero padding changed the result")
         kernel, plain = (lambda: gram.gram(M)), (lambda: gram.gram_reference(M))
+        previous = lambda: prev_gram(M)  # noqa: E731
         library = lambda: torch.matmul(M.T, M)  # noqa: E731  (cuBLAS, the yardstick)
-        k_call, p_call = call_ms(kernel), call_ms(plain)
-        k_dev, p_dev, l_dev = device_ms(kernel), device_ms(plain), device_ms(library)
+        k_call, v_call, p_call = call_ms(kernel), call_ms(previous), call_ms(plain)
+        per_call, ops = cuda_build.kernels_per_call(kernel)
+        if per_call != 1 or ops != 1:
+            raise AssertionError(f"gram {P}x{C}: one call enqueued {per_call} kernels in "
+                                 f"{ops} device operations, not one kernel")
+        k_dev, v_dev = device_ms(kernel), device_ms(previous)
+        p_dev, l_dev = device_ms(plain), device_ms(library)
         b_ms, b_by = bound_ms(4.0 * (P * C + C * C), 2.0 * P * C * C)
-        times[(P, C)] = dict(ms=k_dev, plain_ms=p_dev, library_ms=l_dev, bound_ms=b_ms, bound_by=b_by)
+        times[(P, C)] = dict(ms=k_dev, prev_ms=v_dev, plain_ms=p_dev, library_ms=l_dev,
+                             bound_ms=b_ms, bound_by=b_by, call_ms=k_call, prev_call_ms=v_call,
+                             launches_per_call=per_call)
         log(f"[phase 1] gram {P:6d}x{C:<2d} max|err| {err:.3e}  device: kernel "
-            f"{k_dev * 1e3:7.2f} us, plain {p_dev * 1e3:7.2f} us, library {l_dev * 1e3:7.2f} us, "
-            f"bound {b_ms * 1e3:6.2f} us ({b_by});  call: kernel "
-            f"{k_call * 1e3:7.2f} us, plain {p_call * 1e3:7.2f} us")
+            f"{k_dev * 1e3:7.2f} us ({per_call:g} kernel/call), previous {v_dev * 1e3:7.2f} us, "
+            f"plain {p_dev * 1e3:7.2f} us, library {l_dev * 1e3:7.2f} us, "
+            f"bound {b_ms * 1e3:6.2f} us ({b_by});  call: kernel {k_call * 1e3:7.2f} us, "
+            f"previous {v_call * 1e3:7.2f} us, plain {p_call * 1e3:7.2f} us")
     return dict(max_abs_err=worst, times=times)
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch counts to 0 (just before a path is driven)."""
+    gram.LAUNCHES = 0
+    gram.LAUNCHES_BY_SHAPE.clear()
+    deform.LAUNCHES = 0
+
+
+def by_shape() -> dict:
+    """K1 launches per (P, C) since the last `reset_counts`, largest first."""
+    return dict(sorted(gram.LAUNCHES_BY_SHAPE.items(), reverse=True))
 
 
 def _count_syncs(fn):
@@ -223,8 +314,7 @@ def phase_slam() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    gram.LAUNCHES = 0  # count only the main path's launches from here
-    deform.LAUNCHES = 0
+    reset_counts()  # count only the main path's launches from here
     for i in range(N_WARMUP):
         eng.process_frame("cam0", *frames[i], float(i), sync=False)
     torch.cuda.synchronize()
@@ -237,7 +327,7 @@ def phase_slam() -> dict:
         return time.perf_counter() - t0
 
     dt, syncs = _count_syncs(timed)
-    launches = gram.LAUNCHES
+    launches, shapes = gram.LAUNCHES, by_shape()
     peak = torch.cuda.max_memory_allocated()
 
     stats = torch.stack(fe.stats_log).cpu().numpy()
@@ -251,6 +341,7 @@ def phase_slam() -> dict:
     log(f"[phase 2] ATE {ate * 1e3:.4f} mm, surfels {surfels}, fused {fused}/{n} frames, "
         f"gram launches/frame {launches / n:.2f}, host syncs/frame {syncs / N_TIMED:.2f}, "
         f"peak device memory {peak / 2**20:.1f} MiB")
+    log(f"[phase 2] gram launches by (P, C) over the {n} frames: {shapes}")
     if not (stats[:, 0] == 1.0).all():
         raise AssertionError(f"tracking lost at frames {np.nonzero(stats[:, 0] != 1.0)[0]}")
     if not np.isfinite(stats).all():
@@ -280,7 +371,7 @@ def phase_slam() -> dict:
     log(f"[phase 2] compact of the {cfg.max_surfels}-row map: first call "
         f"{samples[0]:.2f} ms, then median {statistics.median(samples[1:]):.2f} ms "
         f"(min {min(samples[1:]):.2f}, max {max(samples[1:]):.2f}) over 5")
-    return dict(launches=launches, engine=eng, frames=frames)
+    return dict(launches=launches, shapes=shapes, engine=eng, frames=frames)
 
 
 def phase_profile(eng, frames) -> None:
@@ -325,17 +416,51 @@ def _deform_checks(label: str, data: torch.Tensor, count: torch.Tensor, graph) -
     moved = float((out_k[:, sm.POS] - data[:, sm.POS]).abs().max())
     if not (err_p <= DEFORM_TOL and err_n <= DEFORM_TOL):
         raise AssertionError(f"deform {label}: max|err| pos {err_p:.3e} normal {err_n:.3e}")
+    out_v = prev_deform(data.clone(), count, graph)
+    torch.cuda.synchronize()
+    err_v = float((out_v - out_p).abs().max())
+    if not err_v <= DEFORM_TOL:
+        raise AssertionError(f"deform {label}: previous design's max|err| {err_v:.3e}")
     scratch = data.clone()
-    k_dev = device_ms(lambda: deform.deform_map(scratch, count, graph), n=20)
+    kernel = lambda: deform.deform_map(scratch, count, graph)  # noqa: E731
+    per_call, ops = cuda_build.kernels_per_call(kernel)
+    if per_call != 2 or ops != 2:  # the node-table prologue and the map kernel
+        raise AssertionError(f"deform {label}: one call enqueued {per_call} kernels in "
+                             f"{ops} device operations, not two kernels")
+    k_dev = device_ms(kernel, n=20)
+    v_dev = device_ms(lambda: prev_deform(scratch, count, graph), n=20)
     p_dev = device_ms(lambda: deform.deform_map_reference(scratch, count, graph), n=3)
     n_alive = int(alive.sum())
     K = graph.pos.shape[0]
     b_ms, b_by = bound_ms(32.0 * n + 24.0 * n_alive + 68.0 * K, DEFORM_FLOP_PER_ROW * n_alive)
+    share = uniform_warp_share(data, count, graph)
     log(f"[deform] {label}: {n_alive} live rows of {data.shape[0] - 1}, K={K}, "
         f"max|err| pos {err_p:.3e} normal {err_n:.3e} (largest move {moved:.3e} m); "
-        f"device: kernel {k_dev * 1e3:.2f} us, plain {p_dev * 1e3:.2f} us, "
-        f"bound {b_ms * 1e3:.2f} us ({b_by})")
-    return dict(max_abs_err=max(err_p, err_n), ms=k_dev, plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by)
+        f"device: kernel {k_dev * 1e3:.2f} us ({per_call:g} kernels/call), previous "
+        f"{v_dev * 1e3:.2f} us, plain {p_dev * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}); "
+        f"warps on the uniform path {100 * share:.2f}%")
+    return dict(max_abs_err=max(err_p, err_n), ms=k_dev, prev_ms=v_dev, plain_ms=p_dev,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def uniform_warp_share(data: torch.Tensor, count: torch.Tensor, graph) -> float:
+    """Share of K2's warps (32 consecutive rows from row 0, with a live row)
+    whose live rows all share one window start: the warps that take the
+    kernel's uniform path, computed from the map's creation times."""
+    n = min(int(count), data.shape[0] - 1)
+    rows = data[:n]
+    live = rows[:, sm.CONF] > 0
+    ins = torch.searchsorted(graph.time, rows[:, sm.INIT_TIME].contiguous(), right=True)
+    top = max(int(graph.valid.sum()) - deform.LOOKBACK, 0)
+    start = torch.clamp(ins - deform.LOOKBACK, min=0, max=top)
+    pad = (-n) % 32
+    live = torch.nn.functional.pad(live, (0, pad)).view(-1, 32)
+    start = torch.nn.functional.pad(start, (0, pad)).view(-1, 32)
+    big = torch.iinfo(start.dtype).max
+    lo = torch.where(live, start, big).amin(dim=1)
+    hi = torch.where(live, start, -1).amax(dim=1)
+    warps = live.any(dim=1)
+    return float(((lo == hi) & warps).sum()) / max(int(warps.sum()), 1)
 
 
 def phase_deform_synthetic() -> dict:
@@ -391,8 +516,7 @@ def phase_closed_loop() -> dict:
         closed.append(fe.loops_closed > c0)
     torch.cuda.synchronize()
     loops_pre = fe.loops_closed
-    gram.LAUNCHES = 0  # count only this path's launches from here
-    deform.LAUNCHES = 0
+    reset_counts()  # count only this path's launches from here
     walls, syncs, checks = [], [], []
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -412,6 +536,7 @@ def phase_closed_loop() -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    shapes = by_shape()
     walls, syncs = 1e3 * np.array(walls), np.array(syncs, float)
     closed_all = np.array(closed)
     checks, closed = np.array(checks), closed_all[CL_WARMUP:]
@@ -435,6 +560,7 @@ def phase_closed_loop() -> dict:
     log(f"[closed] host syncs: {sync_plain:.2f}/frame without a loop check, "
         f"{sync_check:.2f} more per loop check ({syncs.sum():.0f} in all); "
         f"launches: gram {launches['gram']}, deform {launches['deform']}")
+    log(f"[closed] gram launches by (P, C) over the {CL_TIMED} timed frames: {shapes}")
     log(f"[closed] ATE {ate * 1e3:.2f} mm against gt_pose(i % {LAP}); surfels {surfels}, "
         f"dropped {dropped}, fern keyframes {ferns}")
     log(f"[closed] JAX package on a CPU, same leg: ATE {JAX_CLOSED['ate_mm']} mm, "
@@ -460,8 +586,9 @@ def phase_closed_loop() -> dict:
     if not ate < 0.250:
         raise AssertionError(f"ATE {ate * 1e3:.2f} mm >= 250 mm")
     m = eng.map_of("cam0")
-    return dict(launches=launches, graph=fe.last_loop_graph, data=m.data, count=m.count,
-                frames=frames)
+    return dict(launches=launches, shapes=shapes, graph=fe.last_loop_graph, data=m.data,
+                count=m.count, frames=frames, ate_mm=1e3 * ate, loops_timed=loops_timed,
+                loops_all=fe.loops_closed, surfels=surfels)
 
 
 def phase_closure_profile(frames) -> None:
@@ -493,9 +620,9 @@ def phase_closure_profile(frames) -> None:
                 f"{dev / 1e3 / e.count:8.2f} ms/call")
 
 
-def phase_relocalisation() -> int:
+def phase_relocalisation() -> dict:
     """`tests/test_engine.py`'s relocalisation scenario at 640x480; returns
-    the Gram launches of the frames after the teleport."""
+    the Gram launches of the frames after the teleport, in all and by shape."""
     camera = _camera()
     seq = SyntheticSequence(camera=camera, num_frames=40, radius=0.35, max_angle=0.3)
     cfg = EngineConfig(
@@ -523,16 +650,35 @@ def phase_relocalisation() -> int:
         in_reloc.append(gram.LAUNCHES - before)
         return calls[-1]
 
+    # tracking levels re-run after a starved level (`fallback="select"`
+    # runs both the exact and the frozen iterations of each later level)
+    gn_level = odometry._gn_level
+    reruns = [0]
+
+    def counting_level(*a, **k):
+        reruns[0] += k.get("fallback") == "select"
+        return gn_level(*a, **k)
+
     eng.relocalise = counting
-    gram.LAUNCHES = 0  # count only this path's launches from here
-    for i in range(30):
-        eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
-    launches = gram.LAUNCHES
+    odometry._gn_level = counting_level
+    per_frame = []  # (gram launches, of them inside relocalisation, levels re-run)
+    reset_counts()  # count only this path's launches from here
+    try:
+        for i in range(30):
+            n0, r0, s0 = gram.LAUNCHES, sum(in_reloc), reruns[0]
+            eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
+            per_frame.append((gram.LAUNCHES - n0, sum(in_reloc) - r0, reruns[0] - s0))
+    finally:
+        odometry._gn_level = gn_level
+    launches, shapes = gram.LAUNCHES, by_shape()
     err = float(np.linalg.norm(fe.pose[:3, 3] - seq.gt_pose(15)[:3, 3]))
     log(f"[reloc] {ferns} fern keyframes; {len(calls)} relocalisation attempts, "
         f"{sum(calls)} accepted; final pose {err:.3f} m from the map's last ground-truth pose")
     log(f"[reloc] gram launches: {launches} in the 30 frames after the teleport, "
         f"{sum(in_reloc)} of them inside relocalisation attempts")
+    log(f"[reloc] per frame (gram launches, of them in relocalisation, levels re-run "
+        f"after starving): {per_frame}")
+    log(f"[reloc] gram launches by (P, C): {shapes}")
     if ferns < 1:
         raise AssertionError("no fern keyframe stored")
     if not any(calls):
@@ -541,7 +687,7 @@ def phase_relocalisation() -> int:
         raise AssertionError("an accepted relocalisation launched no gram kernel")
     if not err < 1.0:
         raise AssertionError(f"pose still {err:.2f} m from the map")
-    return launches
+    return dict(launches=launches, shapes=shapes)
 
 
 def main() -> int:
@@ -559,7 +705,21 @@ def main() -> int:
     del closed["data"], closed["graph"]
     phase_closure_profile(closed.pop("frames"))
     torch.cuda.empty_cache()
-    reloc_launches = phase_relocalisation()
+    reloc = phase_relocalisation()
+    # K1 at the shapes the legs launched it at that phase 1 did not cover,
+    # then launches x (time - bound) per shape over the three legs
+    legs = [slam["shapes"], closed["shapes"], reloc["shapes"]]
+    seen = sorted({shape for leg in legs for shape in leg}, reverse=True)
+    more = phase_gram([shape for shape in seen if shape not in k1["times"]])
+    k1["times"].update(more["times"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], more["max_abs_err"])
+    for shape in seen:
+        n = sum(leg.get(shape, 0) for leg in legs)
+        t = k1["times"][shape]
+        log(f"[gram] {shape[0]}x{shape[1]}: {n} launches (open {slam['shapes'].get(shape, 0)}, "
+            f"closed {closed['shapes'].get(shape, 0)}, reloc {reloc['shapes'].get(shape, 0)}), "
+            f"launches x (time - bound) {n * (t['ms'] - t['bound_ms']):.3f} ms, "
+            f"previous design {n * (t['prev_ms'] - t['bound_ms']):.3f} ms")
     g = k1["times"][GRAM_SHAPES[0]]
     log(smi)
     print(json.dumps({"kernels": [
@@ -568,9 +728,11 @@ def main() -> int:
             "route": "cuda",
             "source": "densemonoslam_tpu_torch/csrc/gram.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
-            "launches": slam["launches"] + closed["launches"]["gram"] + reloc_launches,
+            "launches": slam["launches"] + closed["launches"]["gram"] + reloc["launches"],
+            "launches_per_call": g["launches_per_call"],
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
+            "prev_ms": g["prev_ms"],
             "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"],
@@ -584,6 +746,7 @@ def main() -> int:
             "launches": closed["launches"]["deform"],
             "max_abs_err": max(k2_synth["max_abs_err"], k2_real["max_abs_err"]),
             "ms": k2_real["ms"],
+            "prev_ms": k2_real["prev_ms"],
             "plain_ms": k2_real["plain_ms"],
             "bound_ms": k2_real["bound_ms"],
             "bound_by": k2_real["bound_by"],

@@ -7,6 +7,8 @@ and an unchanged one is reused.  Libraries are loaded with `ctypes`.
 
 Nothing here runs at import time: a kernel is built at its first use (or
 by `build(...)`, which starts one `nvcc` per missing library, all at once).
+`kernels_per_call` counts the device operations one call of a wrapper
+enqueues, for the checks that a call launches what it should and no more.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def _library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` at its current source lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    return BUILD_DIR / f"lib{name.replace('/', '-')}_{key}.so"
 
 
 def build(*names: str) -> Dict[str, Path]:
@@ -96,3 +98,41 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         declare(lib)
         _LOADED[name] = lib
     return lib
+
+
+def kernels_per_call(fn) -> tuple[int, int]:
+    """(kernels, all device operations) that one call of `fn` enqueues on
+    the current CUDA device, counted from a CUDA graph of the call (a
+    profiler window can lose device events).  The call runs once on the
+    capture stream first, so what a wrapper keeps per stream (K1's scratch
+    and ticket) exists before the capture."""
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"CUDA driver call failed: CUresult {err}")
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        kinds.append(kind.value)
+    graph.reset()
+    return sum(kind == 0 for kind in kinds), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL

@@ -102,7 +102,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.deform_map_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.deform_map_f32.restype = ctypes.c_int
     lib.deform_max_nodes.argtypes = []
@@ -112,22 +112,26 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def deform_map_cuda(data: torch.Tensor, count: torch.Tensor, graph) -> torch.Tensor:
-    """Launch K2 on PyTorch's current stream (no synchronise); returns `data`."""
+    """Launch K2 (its node-table prologue, then the map kernel) on PyTorch's
+    current stream (no synchronise); returns `data`."""
     global LAUNCHES
     lib = cuda_build.load("deform", _declare)
     f32 = dict(dtype=torch.float32)
     count64 = count.to(torch.int64)
     pos = graph.pos.to(**f32).contiguous()
     time = graph.time.to(**f32).contiguous()
-    valid = graph.valid.to(torch.uint8).contiguous()
+    valid = graph.valid.contiguous().view(torch.uint8)  # bool is one byte: no copy
     A = graph.A.to(**f32).contiguous()
     t = graph.t.to(**f32).contiguous()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = lib.deform_map_f32(
-            data.data_ptr(), data.shape[0] - 1, count64.data_ptr(), pos.data_ptr(),
-            time.data_ptr(), valid.data_ptr(), A.data_ptr(), t.data_ptr(), pos.shape[0], stream,
-        )
+    K = pos.shape[0]
+    # the prologue's node table: [K, 16] floats, then n_valid
+    table = torch.empty(16 * K + 4, device=data.device, **f32)
+    dev = data.device.index
+    err = lib.deform_map_f32(
+        data.data_ptr(), data.shape[0] - 1, count64.data_ptr(), pos.data_ptr(), time.data_ptr(),
+        valid.data_ptr(), A.data_ptr(), t.data_ptr(), K, table.data_ptr(), dev,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
     if err != 0:
         raise RuntimeError(f"deform kernel launch failed: cudaError {err}")
     LAUNCHES += 1

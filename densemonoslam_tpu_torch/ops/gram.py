@@ -8,21 +8,32 @@ hand-written Hopper kernel in `csrc/gram.cu` (replacing the TPU kernel
 
 The kernel is compiled with `nvcc` for `sm_90a` into `build/kernels/` at
 first use, keyed by a hash of its source, and loaded through a plain C entry
-point with `ctypes` (`ops.cuda_build`).  `LAUNCHES` counts kernel launches
-so a run can show that its main path went through the kernel.
+point with `ctypes` (`ops.cuda_build`).  One call is one launch: the entry
+point, and each stream's scratch and ticket, are looked up once and kept.
+`LAUNCHES` counts kernel launches so a run can show that its main path went
+through the kernel; `LAUNCHES_BY_SHAPE` counts them per ``(P, C)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
+from typing import Dict, Tuple
 
 import torch
 
 from densemonoslam_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 SUPPORTED_COLS = (8, 16)
+
+_launch = None  # the library's `gram_f32`, once loaded
+_scratch_floats = 0
+# (device index, stream handle) -> (partials, ticket): the kernel's last
+# block resets the ticket, so a stream reuses its pair from call to call
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def gram_reference(M: torch.Tensor) -> torch.Tensor:
@@ -32,28 +43,45 @@ def gram_reference(M: torch.Tensor) -> torch.Tensor:
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.gram_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.gram_f32.restype = ctypes.c_int
-    lib.gram_rows_per_block.argtypes = []
-    lib.gram_rows_per_block.restype = ctypes.c_int
+    lib.gram_scratch_floats.argtypes = []
+    lib.gram_scratch_floats.restype = ctypes.c_int
+
+
+def _scratch(device: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    pair = _SCRATCH.get((device.index, stream))
+    if pair is None:
+        pair = (
+            torch.empty(_scratch_floats, dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device),
+        )
+        _SCRATCH[(device.index, stream)] = pair
+    return pair
 
 
 def gram_cuda(M: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no synchronise)."""
-    global LAUNCHES
-    lib = cuda_build.load("gram", _declare)
+    global LAUNCHES, _launch, _scratch_floats
+    if M.data_ptr() % 16:
+        raise ValueError("gram needs a 16-byte aligned M for its bulk copies")
+    if _launch is None:
+        lib = cuda_build.load("gram", _declare)
+        _scratch_floats = lib.gram_scratch_floats()
+        _launch = lib.gram_f32
     P, C = M.shape
-    rows = lib.gram_rows_per_block()
-    partials = torch.empty(((P + rows - 1) // rows, C, C), dtype=torch.float32, device=M.device)
-    out = torch.empty((C, C), dtype=torch.float32, device=M.device)
-    with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream(M.device).cuda_stream
-        err = lib.gram_f32(M.data_ptr(), partials.data_ptr(), out.data_ptr(), P, C, stream)
+    dev = M.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    partials, ticket = _scratch(dev, stream)
+    out = torch.empty((C, C), dtype=torch.float32, device=dev)
+    err = _launch(M.data_ptr(), P, C, partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+                  dev.index, stream)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(P, C)] += 1
     return out
 
 
@@ -61,15 +89,14 @@ def gram(M: torch.Tensor) -> torch.Tensor:
     """[P, C] masked rows -> [C, C] Gram matrix in f32.
 
     CPU tensors use `gram_reference`; CUDA tensors use the kernel (never a
-    fallback).  Raises unless M is 2-D, f32, contiguous, with C in (8, 16)."""
+    fallback).  Raises unless M is 2-D, f32, contiguous, with C in (8, 16);
+    on the card M must also start on a 16-byte boundary."""
     if M.dim() != 2 or M.dtype != torch.float32 or not M.is_contiguous():
         raise ValueError(
             f"gram needs a contiguous 2-D float32 tensor, got {M.dtype} {tuple(M.shape)}"
         )
     if M.shape[1] not in SUPPORTED_COLS:
         raise ValueError(f"gram supports C in {SUPPORTED_COLS}, got C={M.shape[1]}")
-    if M.shape[0] >= 2**31:
-        raise ValueError(f"gram supports fewer than 2^31 rows, got {M.shape[0]}")
     if M.device.type == "cuda":
         return gram_cuda(M)
     if M.device.type == "cpu":

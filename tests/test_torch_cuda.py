@@ -13,6 +13,7 @@ from densemonoslam_tpu_torch.config import EngineConfig
 from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.mapping import deformation as tdg
+from densemonoslam_tpu_torch.ops import cuda_build
 from densemonoslam_tpu_torch.ops import deform as tdeform
 from densemonoslam_tpu_torch.ops import gram as tgram
 
@@ -47,11 +48,62 @@ def test_gram_kernel_matches_reference(cuda, P, C):
     assert torch.equal(out, padded)
 
 
+@pytest.mark.parametrize("P,C", [(76800, 16), (4800, 8)])
+def test_gram_kernel_one_launch_per_call(cuda, P, C):
+    """One call is one device kernel and nothing else (no memset, no copy,
+    no second pass), counted from a CUDA graph of the call."""
+    M = torch.randn(P, C, device=cuda)
+    assert cuda_build.kernels_per_call(lambda: tgram.gram(M)) == (1, 1)
+
+
+# rows per chunk: 128 at C = 16, 256 at C = 8; 128 blocks, so a block walks
+# a second chunk from 16384 rows (C = 16) and 32768 rows (C = 8)
+@pytest.mark.parametrize("P,C", [(1, 16), (127, 16), (129, 16), (255, 8), (257, 8),
+                                 (16385, 16), (32769, 8)])
+def test_gram_kernel_zero_padding_and_reruns(cuda, P, C):
+    """Bit-identical reruns and bit-identical results under 1 to 40000
+    appended zero rows: the padding ends a ragged chunk, adds whole zero
+    chunks, and (from small P) pushes P past 128 blocks x one chunk."""
+    gen = np.random.default_rng(P * C)
+    M = torch.from_numpy(gen.normal(0, 1, (P, C)).astype(np.float32)).to(cuda)
+    out = tgram.gram(M)
+    assert torch.equal(out, tgram.gram(M))
+    for pad in (1, 127, 3000, 40000):
+        padded = tgram.gram(torch.cat([M, torch.zeros(pad, C, device=cuda)]))
+        assert torch.equal(out, padded), pad
+    ref = tgram.gram_reference(M.double()).cpu().numpy()
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=2e-5, atol=1e-2)
+
+
+def test_gram_kernel_streams_keep_their_tickets(cuda):
+    """Back-to-back calls on one stream (the last block resets the ticket)
+    and interleaved calls on two streams without a synchronise in between
+    (each stream has its own scratch and ticket) all give the same bits."""
+    M = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (19200, 16)).astype(np.float32))
+    M = M.to(cuda)
+    ref = tgram.gram(M)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for _ in range(20):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                outs.append(tgram.gram(M))
+                outs.append(tgram.gram(M))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ref) for o in outs)
+
+
 def test_gram_kernel_rejects_bad_input_on_cuda(cuda):
     with pytest.raises(ValueError):
         tgram.gram(torch.zeros(64, 12, device=cuda))
     with pytest.raises(ValueError):
         tgram.gram(torch.zeros(64, 8, device=cuda, dtype=torch.float16))
+    unaligned = torch.zeros(64 * 16 + 1, device=cuda)[1:].view(64, 16)  # 4 bytes past 16
+    assert unaligned.is_contiguous()
+    with pytest.raises(ValueError):
+        tgram.gram(unaligned)
 
 
 def test_engine_on_cuda_matches_cpu(cuda):
@@ -129,6 +181,72 @@ def test_deform_kernel_matches_reference(cuda, N, K):
     assert torch.equal(out[:, other], d[:, other])
     assert (out[alive][:, 0:3] != d[alive][:, 0:3]).any()
     assert torch.equal(tdeform.deform_map(d.clone(), c, tdg.empty_graph(K, cuda)), d)
+
+
+def test_deform_kernel_two_launches_per_call(cuda):
+    """One call is K2's two kernels (the node-table prologue, then the map
+    kernel) and nothing else, counted from a CUDA graph of the call."""
+    data, count, g = _deform_case(1 << 12, 64, 3)
+    d = torch.from_numpy(data).to(cuda)
+    c = torch.full((), count, dtype=torch.int64, device=cuda)
+    graph = tdg.graph_from_numpy(g, cuda)
+    assert cuda_build.kernels_per_call(lambda: tdeform.deform_map(d, c, graph)) == (2, 2)
+
+
+@pytest.mark.parametrize("K", [128, 512])
+def test_deform_kernel_paths_agree_bit_for_bit(cuda, K):
+    """Node times with many ties (the K nodes over 12 ticks) and one map
+    laid out twice: sorted by creation time, so nearly every warp's rows
+    share one window (the uniform path), and shuffled, so warps straddle
+    windows (the per-thread path).  Each layout matches
+    `deform_map_reference` within 1e-4 and reruns bit for bit, and every row
+    gets the same bits in both layouts."""
+    data, count, g = _deform_case(1 << 18, K, K)
+    gen = np.random.default_rng(K + 1)
+    nv = K - K // 16
+    g["time"][:nv] = np.sort(np.floor(gen.uniform(0, 12, nv)))
+    data[:count, 11] = np.floor(gen.uniform(-1, 13, count))
+    order = np.argsort(data[:count, 11], kind="stable")
+    shuffle = gen.permutation(count)
+    c = torch.full((), count, dtype=torch.int64, device=cuda)
+    graph = tdg.graph_from_numpy(g, cuda)
+    outs = {}
+    for name, perm in [("sorted", order), ("shuffled", shuffle)]:
+        laid = data.copy()
+        laid[:count] = data[perm]
+        d = torch.from_numpy(laid).to(cuda)
+        out = tdeform.deform_map(d.clone(), c, graph)
+        again = tdeform.deform_map(d.clone(), c, graph)
+        ref = tdeform.deform_map_reference(d.clone(), c, graph)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), name
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+        back = torch.empty_like(out)
+        back[torch.from_numpy(perm).to(cuda)] = out[:count]
+        outs[name] = back[:count]
+    assert torch.equal(outs["sorted"], outs["shuffled"])
+
+
+def test_deform_kernel_equal_distances_take_lower_index(cuda):
+    """Nodes in runs of 6 at one position (each with its own A and t), so
+    every row sees runs of exactly equal distances: of equally near nodes
+    the lower index is kept (`lax.top_k`'s order, the plain version's stable
+    sort), on both of the kernel's paths (rows in index order and in time
+    order); an insertion that let a displaced node pass an equal one would
+    blend other nodes' A and t, far outside 1e-4."""
+    data, count, g = _deform_case(1 << 16, 240, 5)
+    g["pos"][:225] = np.repeat(g["pos"][0:225:6], 6, axis=0)[:225]
+    g["valid"][:225] = True
+    c = torch.full((), count, dtype=torch.int64, device=cuda)
+    graph = tdg.graph_from_numpy(g, cuda)
+    for order in (np.arange(count), np.argsort(data[:count, 11], kind="stable")):
+        laid = data.copy()
+        laid[:count] = data[order]
+        d = torch.from_numpy(laid).to(cuda)
+        out = tdeform.deform_map(d.clone(), c, graph)
+        ref = tdeform.deform_map_reference(d.clone(), c, graph)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
 
 
 def test_deform_kernel_rejects_bad_input_on_cuda(cuda):

@@ -252,6 +252,36 @@ def test_deform_map_reference_matches_xla_and_pallas(rng):
     np.testing.assert_array_equal(out[:, other], data[:, other])
 
 
+def test_deform_map_reference_matches_xla_and_pallas_shuffled_ties(rng):
+    """The oracle for K2's per-thread path: rows in random order (so no run
+    of neighbouring rows shares one node window) and node times with many
+    ties (110 nodes over 8 ticks, rows over the same ticks), against the XLA
+    `apply_to_map` and the TPU kernel in interpret mode, within 2e-6 as
+    above.  The shapes are the test above's, so its compiled programs are
+    reused."""
+    g = _graph_np(rng)
+    g["time"][:110] = np.sort(np.floor(rng.uniform(0, 8, 110)))
+    data, count = _map(rng, 3000)
+    data[:count, 11] = np.floor(rng.uniform(-1, 9, count))
+    data[:count] = data[rng.permutation(count)]
+    P = count
+    jg = _jgraph(g)
+    j_xla = np.asarray(jdg.apply_to_map(jnp.asarray(data), jnp.asarray(count, jnp.int32), jg))
+    j_p, j_n = jpallas.deform_points_pallas(
+        jg.pos, jg.time, jg.valid, jg.A, jg.t, jnp.asarray(data[:P, 0:3]),
+        jnp.asarray(data[:P, 11]), jnp.asarray(data[:P, 8:11]), interpret=True,
+    )
+    out = tdeform.deform_map(torch.from_numpy(data.copy()), torch.tensor(count),
+                             tdg.graph_from_numpy(g, "cpu")).numpy()
+    np.testing.assert_allclose(out, j_xla, atol=2e-6)
+    alive = np.zeros(len(data), bool)
+    alive[:count] = data[:count, 3] > 0
+    np.testing.assert_allclose(out[:P][alive[:P], 0:3], np.asarray(j_p)[alive[:P]], atol=2e-6)
+    np.testing.assert_allclose(out[:P][alive[:P], 8:11], np.asarray(j_n)[alive[:P]], atol=2e-6)
+    assert (out[alive][:, 0:3] != data[alive][:, 0:3]).any()
+    np.testing.assert_array_equal(out[~alive], data[~alive])
+
+
 def test_deform_map_passthrough_and_input_checks(rng):
     """An all-invalid graph passes every row through bit for bit; the
     wrapper raises on inputs the kernel does not take."""
