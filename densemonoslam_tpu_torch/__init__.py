@@ -8,7 +8,9 @@ This package never imports jax or `densemonoslam_tpu`.
 
 Ported so far: the single-camera RGB-D path (`engine.Engine` ->
 `step.make_step`), open or closed loop (ferns, local loop closure through
-the deformation graph) and with relocalisation.  Both TPU kernels are
+the deformation graph), with relocalisation, and the monocular hybrid stack
+(the depth CNN `models.depthnet`, the sparse tracker `tracking.sparse` with
+the BA and PGO solvers of `parallel.ba`, hybrid loops).  Both TPU kernels are
 hand-written CUDA kernels: the Gram reduction (`csrc/gram.cu`, wrapped by
 `ops.gram`) and the whole-map deformation (`csrc/deform.cu`, `ops.deform`).
 Entry points run on the card unless the caller asks for the CPU.

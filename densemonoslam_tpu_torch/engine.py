@@ -10,9 +10,15 @@ fern poses through the deformation graph and re-partitions the map.  With
 `relocalisation`, a lagged poll of the step's device-side bad-frame counter
 detects a lost camera and `relocalise` recovers it through the ferns.
 
-Modes that are not ported yet raise `NotImplementedError`: ORB tracking,
-hybrid loops, depth prediction and a second frontend.  Entry points run on
-the card unless the caller passes `device="cpu"`.
+Monocular mode (`predict_depth`) takes depth from the attached depth CNN
+before tracking.  With `orb_tracking` the sparse tracker supplies the pose
+and its ok flag to the step as device values (no host branch); when its
+pose graph is re-optimised the pose history is rewritten from the keyframe
+corrections, and with `hybrid_loops` its loop pairs drive a hybrid closure
+of the dense map.
+
+A second frontend raises `NotImplementedError` (not ported yet).  Entry
+points run on the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -32,9 +38,9 @@ from densemonoslam_tpu_torch.mapping import ferns as fernmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import preprocess
 from densemonoslam_tpu_torch.tracking import odometry
+from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 from densemonoslam_tpu_torch.utils.stats import SessionStats
 
-_UNPORTED_MODES = ("orb_tracking", "hybrid_loops", "predict_depth")
 _HIST_INITIAL_CAP = 1024
 
 
@@ -62,6 +68,7 @@ class Frontend:
     loops_closed: int = 0
     last_loop_info: Optional[loopsmod.LoopInfo] = None
     last_loop_graph: Optional[dg.DeformGraph] = None  # of the last accepted closure
+    sparse_tracker: Optional[SparseTracker] = None
     lost: bool = False
     consecutive_bad: int = 0
 
@@ -150,13 +157,16 @@ class Engine:
                 "Engine runs on the card by default and no CUDA device is available: "
                 'pass device="cpu" to run on the CPU'
             )
-        for mode in _UNPORTED_MODES:
-            if getattr(self.config, mode):
-                raise NotImplementedError(f"EngineConfig.{mode} is not ported yet")
         self.frontends: Dict[str, Frontend] = {}
         self.maps: Dict[str, MapBackend] = {}
         self.global_tick = 0
         self._compact_interval = 64
+        self._depth_predictor = None
+
+    def set_depth_predictor(self, predictor) -> None:
+        """Attach a monocular depth network (`models.depthnet.DepthPredictor`,
+        used with `predict_depth=True`)."""
+        self._depth_predictor = predictor
 
     def frontend(self, name: str, sensor_id: Optional[int] = None) -> Frontend:
         """Create the camera frontend, in its own map."""
@@ -204,14 +214,33 @@ class Engine:
         be.map_data, be.map_count = m.data, m.count
         fe.state = fe.state.replace(map_data=m.data, map_count=m.count)
 
-    def _on_loop_closed(self, fe: Frontend, be: MapBackend, graph: dg.DeformGraph) -> None:
+    def _rewrite_history_from_pgo(self, fe: Frontend, ev) -> None:
+        """Apply the sparse tracker's PGO keyframe corrections to the pose
+        history: `ev` = (kf_ticks, kf_poses_before, kf_poses_after), whose
+        ticks index this camera's frames; each history row takes the delta
+        of the last keyframe at or before it.  One host-to-device copy."""
+        n = len(fe.ts_log)
+        kf_ticks, before, after = ev
+        if n == 0 or len(kf_ticks) == 0:
+            return
+        deltas = np.einsum("kij,kjl->kil", after, np.linalg.inv(before)).astype(np.float32)
+        j = np.clip(np.searchsorted(kf_ticks, np.arange(n), side="right") - 1, 0, None)
+        d = torch.from_numpy(deltas[j]).to(fe.pose_hist.device)
+        fe.pose_hist[:n] = d @ fe.pose_hist[:n]
+
+    def _on_loop_closed(
+        self, fe: Frontend, be: MapBackend, graph: dg.DeformGraph, rewrite_history: bool = True
+    ) -> None:
         """Everything an accepted deformation touches beyond the map: the
         pose history and the fern keyframe poses go through the graph, then
-        the map is re-partitioned."""
+        the map is re-partitioned.  `rewrite_history=False` when the sparse
+        tracker's PGO already corrected the history this frame (the graph
+        was built against the drifted layout: applying it too would apply
+        the loop correction twice)."""
         fe.last_loop_graph = graph
         n = len(fe.ts_log)
         with record_function("loop.rewrite_poses"):
-            if n:
+            if n and rewrite_history:
                 fe.pose_hist[:n] = dg.apply_to_poses(graph, fe.pose_hist[:n], fe.hist_times[:n])
             if fe.fern_state is not None:
                 db = fe.fern_state.db
@@ -236,30 +265,45 @@ class Engine:
         cluster: int = 0,
     ) -> Dict[str, float]:
         """Process one frame for camera `name`.  `rgb` [H,W,3] and
-        `depth_raw` [H,W] are numpy arrays or tensors; `in_pose`
-        (camera-to-world) bypasses tracking (ground-truth injection).  With
-        `sync=False` the stats are only logged and an empty dict returns."""
-        if depth_raw is None:
-            raise NotImplementedError("monocular depth prediction is not ported yet")
+        `depth_raw` [H,W] are numpy arrays or tensors; `depth_raw=None`
+        takes depth from the attached depth CNN (`predict_depth`).
+        `in_pose` (camera-to-world) bypasses tracking (ground-truth
+        injection).  With `sync=False` the stats are only logged and an
+        empty dict returns."""
         fe = self.frontends[name]
         cfg = self.config
         dev = self.device
         rgb = torch.as_tensor(rgb, device=dev)
+        if depth_raw is None:
+            # monocular: the depth CNN supplies depth BEFORE tracking
+            if not (cfg.predict_depth and self._depth_predictor is not None):
+                raise ValueError(
+                    "no depth given and no depth predictor attached "
+                    "(set predict_depth=True and call set_depth_predictor)"
+                )
+            with record_function("frame.depth_cnn"):
+                depth_raw = self._depth_predictor.predict(rgb)
         depth_raw = torch.as_tensor(depth_raw, device=dev).to(torch.float32)
         use_in = in_pose is not None
         if use_in:
             pose_in = torch.as_tensor(np.asarray(in_pose, np.float32), device=dev)
         else:
             pose_in = torch.eye(4, dtype=torch.float32, device=dev)
+        if cfg.orb_tracking and not use_in:
+            # the sparse tracker supplies the pose: device values, consumed
+            # by the step without a host branch
+            pose_in, use_in = self._track_sparse(fe, rgb, depth_raw)
         be = self.backend_of(name)
         # install the backend's canonical map and the session tick
         fe.state = fe.state.replace(
             map_data=be.map_data, map_count=be.map_count,
             tick=torch.full((), self.global_tick, dtype=torch.int64, device=dev),
         )
-        fe.state, stats = fe.step_fn(
-            fe.state, rgb, depth_raw, pose_in, use_in, cfg.fusion_weight_multiplier, float(cluster)
-        )
+        with record_function("frame.dense_step"):
+            fe.state, stats = fe.step_fn(
+                fe.state, rgb, depth_raw, pose_in, use_in, cfg.fusion_weight_multiplier,
+                float(cluster),
+            )
         be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
         fe.record_pose(stats, self.global_tick)
         self.global_tick += 1
@@ -321,6 +365,43 @@ class Engine:
             "dropped": float(row[stepmod.STAT_DROPPED]),
             "surfels": float(row[stepmod.STAT_SURFELS]),
         }
+
+    def _track_sparse(self, fe: Frontend, rgb: torch.Tensor, depth_raw: torch.Tensor):
+        """The `orb_tracking` branch: track the frame with the frontend's
+        sparse tracker (created on first use), rewrite the pose history after
+        a pose-graph optimisation, and with `hybrid_loops` close the dense map
+        on the tracker's loop pair.  Returns (pose, ok) as device values."""
+        cfg = self.config
+        if fe.sparse_tracker is None:
+            fe.sparse_tracker = SparseTracker(fe.camera.intrinsics, device=self.device)
+            fe.sparse_tracker.pose = fe.pose
+        with record_function("frame.sparse_track"):
+            pose, ok = fe.sparse_tracker.track(
+                preprocess.rgb_to_intensity(rgb), depth_raw / cfg.depth_factor
+            )
+        ev = fe.sparse_tracker.pop_pgo_event()
+        if ev is not None:
+            # a sparse loop closed and the pose graph was re-optimised: the
+            # dense trajectory takes the per-keyframe corrections (the map's
+            # correction is the hybrid closure's job below)
+            self._rewrite_history_from_pgo(fe, ev)
+        if cfg.hybrid_loops:
+            pair = fe.sparse_tracker.pop_loop()
+            if pair is not None:
+                pose_est, pose_corr = pair
+                C = (pose_corr @ np.linalg.inv(pose_est)).astype(np.float32)
+                be = self.backend_of(fe.name)
+                fe.state = fe.state.replace(map_data=be.map_data, map_count=be.map_count)
+                fe.state, linfo, lgraph = loopsmod.apply_hybrid_loop(
+                    fe.state, C, fe.camera, cfg, rel_bank=be.get_rel_bank()
+                )
+                be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
+                fe.last_loop_info = linfo
+                if linfo.closed:
+                    fe.loops_closed += 1
+                    fe.sparse_tracker.pose = fe.pose
+                    self._on_loop_closed(fe, be, lgraph, rewrite_history=ev is None)
+        return pose, ok
 
     def relocalise(self, name: str, rgb, depth_raw) -> bool:
         """Fern relocalisation: query the fern DB with the current frame,

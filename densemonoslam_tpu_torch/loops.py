@@ -8,11 +8,16 @@ fern parts of `densemonoslam_tpu.loops`).
 - **Ferns**: the keyframe database that relocalisation queries, with a
   geometric verification of the candidate pose.
 
-These run at the engine's loop-check cadence.  The reference runs a local
-loop as one jitted program with three `lax.cond` gates (inactive coverage,
-the tracking gates, the deformation's acceptance); here each gate is one
-host read of a few device values, and only what a gate lets through runs.
-Hybrid loops, map merging and inter-map recognition are not ported.
+- **Hybrid loops**: a world correction from the sparse tracker's loop
+  pair deforms the map through constraints on a sparse grid of the ACTIVE
+  prediction, with the INACTIVE prediction pinned.
+
+These run at the engine's loop-check cadence (hybrid loops when the sparse
+tracker closes one).  The reference runs a loop as one jitted program with
+`lax.cond` gates (inactive coverage, the tracking gates, the deformation's
+acceptance); here each gate is one host read of a few device values, and
+only what a gate lets through runs.  Map merging and inter-map recognition
+are not ported.
 """
 
 from __future__ import annotations
@@ -254,6 +259,85 @@ def try_local_loop(
         model_age=torch.full_like(state.model_age, stepmod.MODEL_INVALID_AGE),
     )
     return new_state, LoopInfo(True, True, inact_frac, inlier_h, icp_err_h, cons_err), graph2, rel_bank
+
+
+def apply_hybrid_loop(
+    state: stepmod.SlamState,
+    correction: np.ndarray,  # [4,4] world-frame transform: corrected = C @ current
+    camera: CameraConfig,
+    cfg: EngineConfig,
+    rel_bank: Optional[RelBank] = None,
+) -> Tuple[stepmod.SlamState, LoopInfo, dg.DeformGraph]:
+    """Global loop closure driven by an external (sparse-tracker) pose pair:
+    constraints on a sparse grid of the ACTIVE prediction pull the map by
+    the world correction ``C = pose_corrected @ inv(pose_estimate)``, the
+    INACTIVE prediction's points are pinned, the deformation graph's old
+    epoch is frozen, and the result is accepted when its mean constraint
+    error is within twice `loop_cons_err_thresh` (the reference relaxes the
+    hybrid gate).  On acceptance the map is deformed (kernel K2, in place on
+    `state.map_data`), the pose takes C and what is in view is reactivated.
+
+    Returns (state, info, the applied graph (all-invalid when not
+    accepted)).  One host read: the acceptance and its error."""
+    intr = camera.intrinsics
+    W, H = camera.resolution.width, camera.resolution.height
+    dev = state.map_data.device
+    stride = cfg.loop_constraint_stride
+    win = cfg.active_window if cfg.active_window < cfg.max_surfels else 0
+    if rel_bank is None:
+        rel_bank = make_rel_bank(device=dev)
+    C = torch.as_tensor(np.asarray(correction, np.float32), device=dev)
+    data, count, pose = state.map_data, state.map_count, state.pose
+    t_now = state.tick
+    t_f = t_now.to(torch.float32)
+    with record_function("loop.hybrid_optimise"):
+        pred_act = splat.render(
+            data, count, pose, intr, W, H, t_now, time_delta=cfg.time_delta,
+            mode=splat.MODE_ACTIVE, window=win,
+        )
+        pred_in = splat.render(
+            data, count, pose, intr, W, H, t_now, time_delta=cfg.time_delta,
+            mode=splat.MODE_INACTIVE,
+        )
+        src_cam = warp.decimate(pred_act.vmap, stride).reshape(-1, 3)
+        t_src = warp.decimate(pred_act.time, stride).reshape(-1)
+        valid = src_cam[:, 2] > 0
+        src_w = se3.transform_points(pose, src_cam)
+        dst_w = se3.transform_points(C, src_w)
+        pin_cam = warp.decimate(pred_in.vmap, stride).reshape(-1, 3)
+        t_pin = warp.decimate(pred_in.time, stride).reshape(-1)
+        pin_w = se3.transform_points(pose, pin_cam)
+        pin_ok = pin_cam[:, 2] > 0
+        cons = dg.Constraint(
+            src=torch.cat([src_w, pin_w]),
+            dst=torch.cat([dst_w, pin_w]),
+            time=torch.cat([t_src, t_pin]),
+            valid=torch.cat([valid, pin_ok]),
+            pinned=torch.cat([torch.zeros_like(valid), torch.ones_like(pin_ok)]),
+        )
+        graph = dg.sample_graph(data, count, cfg.max_deform_nodes, cfg.deform_graph_sample_rate)
+        frozen = graph.time < (t_f - cfg.time_delta)
+        graph2, stats = dg.optimise(graph, cons, frozen=frozen, rel=rel_bank.cons)
+        accept = stats.mean_cons_error <= 2.0 * cfg.loop_cons_err_thresh
+        accept_h, cons_err = torch.stack(  # the one read
+            [accept.to(torch.float32), stats.mean_cons_error]
+        ).tolist()
+    info = LoopInfo(
+        attempted=True, closed=accept_h > 0, inactive_frac=0.0, inlier_frac=1.0,
+        icp_error=0.0, cons_error=cons_err,
+    )
+    if not accept_h > 0:
+        return state, info, dg.empty_graph(cfg.max_deform_nodes, dev)
+    with record_function("loop.apply"):
+        dg.apply_to_map(data, count, graph2)
+        new_pose = C @ pose
+        _reactivate_in_view(data, count, new_pose, t_now, intr, W, H, depth_max=cfg.max_depth)
+    new_state = state.replace(
+        map_data=data,
+        pose=new_pose,
+        model_age=torch.full_like(state.model_age, stepmod.MODEL_INVALID_AGE),
+    )
+    return new_state, info, graph2
 
 
 class FernLoopState(NamedTuple):

@@ -59,18 +59,21 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
-    """Log map SO(3) -> R^3 (rotation vector)."""
-    trace = R[0, 0] + R[1, 1] + R[2, 2]
+    """Log map SO(3) -> R^3 (rotation vector), for [..., 3, 3]."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     c = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     small = c > 1.0 - 1e-5
     c_safe = torch.where(small, torch.zeros_like(c), c)
     theta = torch.arccos(c_safe)
-    w_hat = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]], dim=-1)
+    w_hat = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
     one_m_c = torch.clamp(1.0 - c, min=0.0)
     scale_small = 0.5 + one_m_c / 6.0 + one_m_c * one_m_c * (7.0 / 90.0)
     scale_big = theta / (2.0 * torch.sin(theta) + _EPS)
     scale = torch.where(small, scale_small, scale_big)
-    return scale * w_hat
+    return scale[..., None] * w_hat
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
@@ -88,11 +91,11 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
-    """Log map SE(3) -> R^6 (omega, v)."""
-    t = T[:3, 3]
-    w = so3_log(T[:3, :3])
-    small, a, b, theta2_safe = _exp_coeffs(torch.sum(w * w))
-    theta2 = torch.sum(w * w)
+    """Log map SE(3) -> R^6 (omega, v), for [..., 4, 4]."""
+    t = T[..., :3, 3]
+    w = so3_log(T[..., :3, :3])
+    theta2 = torch.sum(w * w, dim=-1)
+    small, a, b, theta2_safe = _exp_coeffs(theta2)
     W = hat(w)
     # V^{-1} = I - 0.5 W + (1/theta^2)(1 - a/(2b)) W^2
     coef = torch.where(
@@ -100,8 +103,9 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         1.0 / 12.0 + theta2 / 720.0,
         (1.0 - a / (2.0 * torch.clamp(b, min=1e-12))) / theta2_safe,
     )
-    Vinv = torch.eye(3, dtype=T.dtype, device=T.device) - 0.5 * W + coef * (W @ W)
-    return torch.cat([w, Vinv @ t], dim=-1)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device)
+    Vinv = eye - 0.5 * W + coef[..., None, None] * (W @ W)
+    return torch.cat([w, torch.einsum("...ij,...j->...i", Vinv, t)], dim=-1)
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,14 @@ def test_config_derived_values_match_reference(levels, fast):
     assert (ti.matrix() == ji.matrix()).all()
 
 
+@pytest.mark.parametrize("name", ["tum_default", "kitti_default"])
+def test_camera_presets_match_reference(name):
+    """The camera presets, field by field (KITTI's drives the monocular
+    street leg)."""
+    jc, tc = getattr(jcfg.CameraConfig, name)(), getattr(tcfg.CameraConfig, name)()
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+
+
 def test_port_never_imports_jax():
     """Importing every module of the port leaves jax and the JAX package out
     of `sys.modules` (the port must run where jax is not installed)."""

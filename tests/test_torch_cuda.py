@@ -295,3 +295,119 @@ def test_closed_loop_engine_on_cuda_matches_cpu(cuda):
     assert runs["cuda"][0] is not None and runs["cuda"][0] == runs["cpu"][0]
     assert runs["cuda"][2] >= 1 and runs["cpu"][2] == 0
     np.testing.assert_allclose(runs["cuda"][1][:, :3, 3], runs["cpu"][1][:, :3, 3], atol=1e-3)
+
+
+# ---------------------------------------------------------------- monocular
+
+
+def _intensity(rgb: np.ndarray) -> np.ndarray:
+    r = rgb.astype(np.float32)
+    return (0.299 * r[..., 0] + 0.587 * r[..., 1] + 0.114 * r[..., 2]).astype(np.float32)
+
+
+def test_depthnet_on_cuda_matches_cpu(cuda):
+    """The packaged street net at the KITTI operating size (1024x320) on the
+    GPU and on the CPU: depths within 1e-4 relative (cuDNN's f32
+    convolutions sum in another order; TF32 is off)."""
+    from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
+
+    rgb = np.random.default_rng(0).integers(0, 256, (320, 1024, 3)).astype(np.uint8)
+    a = DepthPredictor.pretrained_street(device=cuda).predict(rgb)
+    b = DepthPredictor.pretrained_street(device="cpu").predict(rgb)
+    assert a.device.type == "cuda"
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4)
+
+
+def test_detector_on_cuda_matches_cpu(cuda):
+    """`detect_and_describe` and `detect_pyramid` on a 1024x320 street frame
+    on the GPU and on the CPU: octave 0 identical in its keypoint slots,
+    validity and depth, angles within 1e-4 and >= 99% of the valid
+    descriptors bit-equal; every octave's valid keypoints overlap >= 95%
+    (the antialiased resizes round differently on each device)."""
+    from densemonoslam_tpu_torch.config import CameraConfig
+    from densemonoslam_tpu_torch.io.street import StreetSequence
+    from densemonoslam_tpu_torch.tracking import sparse
+
+    rgb, depth = StreetSequence(CameraConfig.kitti_default(), exposure_jitter=0.03).frame(40)
+    inten, depth = torch.from_numpy(_intensity(rgb)), torch.from_numpy(depth)
+    kc = sparse.detect_and_describe(inten.to(cuda), depth.to(cuda))
+    kh = sparse.detect_and_describe(inten, depth)
+    v = kh.valid.numpy()
+    assert v.sum() > 300
+    np.testing.assert_array_equal(kc.valid.cpu().numpy(), v)
+    np.testing.assert_array_equal(kc.uv.cpu().numpy(), kh.uv.numpy())
+    np.testing.assert_array_equal(kc.depth.cpu().numpy(), kh.depth.numpy())
+    np.testing.assert_allclose(kc.angle.cpu().numpy()[v], kh.angle.numpy()[v], atol=1e-4)
+    same = (kc.desc.cpu().numpy()[v] == kh.desc.numpy()[v]).all(axis=1)
+    assert same.mean() >= 0.99
+    pc, ph = sparse.detect_pyramid(inten.to(cuda), depth.to(cuda)), sparse.detect_pyramid(inten, depth)
+    o = 0
+    for q in sparse._octave_quotas(sparse.OCTAVES, sparse.SCALE_FACTOR, sparse.MAX_KEYPOINTS):
+        a = {tuple(p) for p, ok in zip(pc.uv.cpu().numpy()[o:o + q], pc.valid.cpu().numpy()[o:o + q]) if ok}
+        b = {tuple(p) for p, ok in zip(ph.uv.numpy()[o:o + q], ph.valid.numpy()[o:o + q]) if ok}
+        assert len(a & b) >= 0.95 * len(a | b)
+        o += q
+
+
+def test_ba_and_pgo_on_cuda_are_deterministic(cuda):
+    """`bundle_adjust` and `optimise_pose_graph` each run twice on the GPU
+    give the same bits (their sums are one-hot products, never float-atomic
+    scatters)."""
+    from densemonoslam_tpu_torch.config import CameraIntrinsics
+    from densemonoslam_tpu_torch.parallel import ba
+    from densemonoslam_tpu_torch.utils import se3
+
+    gen = np.random.default_rng(7)
+    W, Pn, KP = 6, 512, 512
+    poses = se3.se3_exp(torch.from_numpy(gen.normal(0, 0.05, (W, 6)).astype(np.float32)))
+    pts = np.stack([gen.uniform(-5, 5, Pn), gen.uniform(-2, 2, Pn), gen.uniform(5, 30, Pn)], -1)
+    O = W * KP
+    problem = ba.BAProblem(
+        poses=poses.to(cuda),
+        points=torch.from_numpy(pts.astype(np.float32)).to(cuda),
+        cam_idx=torch.from_numpy(np.repeat(np.arange(W), KP)).to(cuda),
+        pnt_idx=torch.from_numpy(gen.integers(0, Pn, O)).to(cuda),
+        uv=torch.from_numpy(gen.uniform(0, 1024, (O, 2)).astype(np.float32)).to(cuda),
+        valid=torch.from_numpy(gen.random(O) > 0.2).to(cuda),
+        z=torch.from_numpy(gen.uniform(0, 30, O).astype(np.float32)).to(cuda),
+    )
+    intr = CameraIntrinsics(707.09, 707.09, 601.89, 183.11)
+    runs = [ba.bundle_adjust(problem, intr, iters=4, fix_cameras=1, damping=1e-2, huber=3.0)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0].poses, runs[1][0].poses)
+    assert torch.equal(runs[0][0].points, runs[1][0].points)
+    K, E = 256, 512
+    kp = se3.se3_exp(torch.from_numpy(gen.normal(0, 0.3, (K, 6)).astype(np.float32))).to(cuda)
+    ei = torch.from_numpy(np.concatenate([np.arange(K - 1), gen.integers(0, K, E - K + 1)])).to(cuda)
+    ej = torch.from_numpy(np.concatenate([np.arange(1, K), gen.integers(0, K, E - K + 1)])).to(cuda)
+    Z = se3.se3_inverse(kp[ei]) @ kp[ej] @ se3.se3_exp(torch.randn(E, 6, device=cuda) * 0.01)
+    edges = ba.PoseGraphEdges(i=ei, j=ej, Z=Z, weight=torch.ones(E, device=cuda))
+    outs = [ba.optimise_pose_graph(kp, edges, cg_iters=128) for _ in range(2)]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_sparse_track_without_flush_makes_no_sync(cuda):
+    """A `SparseTracker.track` call that does not flush queues device work
+    only: zero host synchronisations (CUDA sync debug mode)."""
+    import warnings
+
+    from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
+
+    seq = SyntheticSequence(num_frames=40, radius=0.35, max_angle=0.3)
+    frames = [(torch.from_numpy(_intensity(r)).to(cuda), torch.from_numpy(d).to(cuda))
+              for r, d in (seq.frame(i) for i in range(3))]
+    trk = SparseTracker(seq.camera.intrinsics, device=cuda)
+    trk.pose = seq.gt_pose(0).astype(np.float32)
+    trk.track(*frames[0])  # the first frame inserts the first keyframe (one read)
+    trk.track(*frames[1])
+    torch.cuda.synchronize()
+    assert len(trk._pending) == 1 < trk.flush_interval - 1
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trk.track(*frames[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(trk._pending) == 2
+    assert sum("synchroniz" in str(w.message) for w in caught) == 0

@@ -1,8 +1,9 @@
 """The PyTorch port's `Engine` alone, held to the bounds of
 `tests/test_engine.py` on the same synthetic fixture (open loop, always
 fuse): ATE < 10 mm over 25 frames with > 10000 surfels, ATE < 8 mm over 15
-frames, ground-truth injection ATE < 1e-6, and the exports; the modes that
-are still unported raise, and the entry points default to the card."""
+frames, ground-truth injection ATE < 1e-6, and the exports; every mode of
+the config runs a frame, a second frontend and RGB-only input without a
+depth net raise, and the entry points default to the card."""
 
 import numpy as np
 import pytest
@@ -13,8 +14,10 @@ from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.eval import ate_rmse
 from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.io.writers import load_ply
+from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
 from densemonoslam_tpu_torch.ops.warp import pixel_grid
 from densemonoslam_tpu_torch.step import init_state
+from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 
 torch.set_num_threads(2)
 
@@ -83,9 +86,20 @@ def test_engine_exports(run25, tmp_path):
     [dict(orb_tracking=True), dict(hybrid_loops=True), dict(predict_depth=True)],
     ids=["orb", "hybrid", "predict-depth"],
 )
-def test_engine_unported_modes_raise(override):
-    with pytest.raises(NotImplementedError):
-        Engine(CameraConfig.tum_default(), EngineConfig(**{**BASE, **override}), device="cpu")
+def test_engine_unported_modes_raise(seq, override):
+    """The three monocular modes build on the CPU and run a frame (RGB
+    only, with the packaged depth net attached, in the predict-depth
+    case)."""
+    eng = Engine(seq.camera, EngineConfig(**{**BASE, **override}), device="cpu")
+    fe = eng.frontend("cam0")
+    fe.pose = seq.gt_pose(0).astype(np.float32)
+    rgb, depth = seq.frame(0)
+    if override.get("predict_depth"):
+        eng.set_depth_predictor(DepthPredictor.pretrained_synthetic(device="cpu"))
+        depth = None
+    info = eng.process_frame("cam0", rgb, depth, 0.0)
+    assert info["tracking_ok"] == 1.0 and info["surfels"] > 1000
+    assert (fe.sparse_tracker is not None) == bool(override.get("orb_tracking"))
 
 
 def test_engine_second_frontend_and_missing_depth_raise(seq):
@@ -94,7 +108,7 @@ def test_engine_second_frontend_and_missing_depth_raise(seq):
     with pytest.raises(NotImplementedError):
         eng.frontend("cam1")
     rgb, _ = seq.frame(0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # RGB only, and no depth predictor attached
         eng.process_frame("cam0", rgb, None, 0.0)
 
 
@@ -104,8 +118,10 @@ def test_engine_second_frontend_and_missing_depth_raise(seq):
         lambda: Engine(CameraConfig.tum_default(), EngineConfig(**BASE)),
         lambda: init_state(1 << 10, 12, 16),
         lambda: pixel_grid(12, 16),
+        lambda: DepthPredictor.pretrained_synthetic(),
+        lambda: SparseTracker(CameraConfig.tum_default().intrinsics),
     ],
-    ids=["engine", "init_state", "pixel_grid"],
+    ids=["engine", "init_state", "pixel_grid", "depth_predictor", "sparse_tracker"],
 )
 def test_entry_points_default_to_cuda(make):
     """Without `device=` the entry points run on the card: with no card
