@@ -38,11 +38,11 @@ Phases (any failure raises, so the exit code is not 0):
    frames, rendered on the host by a pool that runs during legs 1-7), the
    packaged street depth net, ORB tracking with local BA, hybrid loops, a
    1<<22-surfel map; the frames stay in host memory and each is uploaded
-   by `process_frame`, as in the bench; 62 warm-up frames, 8 under
-   `torch.profiler` (device-busy ms and the depth CNN / sparse tracker /
-   dense step ranges), then frames 70-519 timed with host syncs counted:
-   fps, ATE, loops, surfels, launches; then K2 against its plain version
-   on the lap's full map with a graph sampled from it;
+   by `process_frame`, as in the bench; the lap's first 320 frames: 62
+   warm-up frames, 8 under `torch.profiler` (device-busy ms and the depth
+   CNN / sparse tracker / dense step ranges), then frames 70-319 timed with
+   host syncs counted: fps, ATE, loops, surfels, launches; then K2 against
+   its plain version on the leg's full map with a graph sampled from it;
 9. the standalone street sparse lap (`tests/test_street.py`'s full-lap
    loop closure) on the same frames and their true depth: >= 1 loop and a
    final error < 0.5 m;
@@ -50,7 +50,20 @@ Phases (any failure raises, so the exit code is not 0):
    a known correction) at 640x480: accepted within that test's bounds,
    through K2; then K2 against its plain version on the map before the
    closure with the graph the closure applied;
-11. K1 at the other shapes the legs launched it at, and per shape its
+11. two cameras in one engine (`tests/test_intermap.py` at 640x480): camB
+   in its own frame, poses injected until the maps merge (the loop-check
+   frames profiled for the merge's `merge.*` ranges) within that test's
+   bounds; then both track densely into the one map (ms and host syncs per
+   camera-frame, ATE, a profiled breakdown); then `tests/test_engine.py`'s
+   batch align;
+12. a collaborative session of gloo ranks on the one card, each a process
+   (`chip_smoke.py --collab-rank`) joined by `multihost.initialize()`:
+   collab steps timed on 1 rank, then on 2 ranks the inter-map rounds to a
+   merge both ranks report identically (and the merge round again with
+   consume), the full pipeline with every camera closing a loop,
+   distributed PGO/BA against one device and the sharded K2 apply against
+   one rank's K2, bit for bit; the ranks' launches are summed;
+13. K1 at the other shapes the legs launched it at, and per shape its
    launches over the legs times (device time - bound).
 
 Each leg sets every launch count to 0 just before it and reads the counts
@@ -117,6 +130,10 @@ LAP, CL_WARMUP, CL_TIMED = 40, 45, 60
 JAX_CLOSED = dict(ate_mm=115.06, loops_timed=4, loops_all=5, surfels=1048575, ferns=5)
 # the JAX bench's monocular street leg (bench.py:119-209)
 STREET_FRAMES, STREET_WARMUP, STREET_PROFILED = 520, 70, 8
+# the mono leg drives the lap's first 320 frames (250 timed): the whole
+# smoke must finish well inside its time limit on the slowest hosts seen,
+# and the multi-camera legs took the time of 200 more mono frames
+MONO_FRAMES = 320
 MONO = dict(
     max_surfels=1 << 22, depth_cutoff=40.0, max_depth=80.0, depth_factor=1.0,
     depth_gate_rel=0.1, nid_keyframing=True, open_loop=True, predict_depth=True,
@@ -534,11 +551,10 @@ def uniform_warp_share(data: torch.Tensor, count: torch.Tensor, graph) -> float:
     return float(((lo == hi) & warps).sum()) / max(int(warps.sum()), 1)
 
 
-def phase_deform_synthetic() -> dict:
-    """K2 on a random 1<<20-row map with a 512-node graph (a few invalid
-    nodes inside, the last 32 invalid), times with ties, 10% dead rows and
-    live rows past `count`; then the all-invalid graph must pass every row
-    through bit for bit."""
+def _synthetic_deform_case():
+    """A random 1<<20-row map and a 512-node graph (a few invalid nodes
+    inside, the last 32 invalid), times with ties, 10% dead rows and live
+    rows past `count`: (data, count, graph) on the card."""
     gen = np.random.default_rng(1)
     N, K = 1 << 20, deform.MAX_NODES
     data = np.zeros((N + 1, sm.COLS), np.float32)
@@ -561,6 +577,14 @@ def phase_deform_synthetic() -> dict:
     graph = dg.graph_from_numpy(dict(pos=pos, time=time_, valid=valid, A=A, t=t), "cuda")
     d = torch.from_numpy(data).cuda()
     count = torch.full((), N - 4096, dtype=torch.int64, device="cuda")
+    return d, count, graph
+
+
+def phase_deform_synthetic() -> dict:
+    """K2 on `_synthetic_deform_case`'s map and graph; then the all-invalid
+    graph must pass every row through bit for bit."""
+    d, count, graph = _synthetic_deform_case()
+    K = graph.pos.shape[0]
     res = _deform_checks("synthetic 1<<20 rows, 512 nodes", d, count, graph)
     out = deform.deform_map(d.clone(), count, dg.empty_graph(K))
     torch.cuda.synchronize()
@@ -914,7 +938,7 @@ def phase_mono_street(seq: StreetSequence, frames: list) -> dict:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t_start = time.perf_counter()
-            for i in range(STREET_WARMUP, STREET_FRAMES):
+            for i in range(STREET_WARMUP, MONO_FRAMES):
                 n0, f0 = len(caught), len(fe.sparse_tracker._pending)
                 t1 = time.perf_counter()
                 eng.process_frame("cam0", rgbs[i], None, float(i), sync=False)
@@ -932,18 +956,18 @@ def phase_mono_street(seq: StreetSequence, frames: list) -> dict:
     launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
     shapes = by_shape()
     peak = torch.cuda.max_memory_allocated()
-    n_timed = STREET_FRAMES - STREET_WARMUP
+    n_timed = MONO_FRAMES - STREET_WARMUP
     stats = torch.stack(fe.stats_log).cpu().numpy()
     est = [p for _, p in fe.trajectory]
     gt = [seq.gt_pose(i) for i in range(len(est))]
     ate = ate_rmse(est, gt)
-    last = STREET_FRAMES - 1
+    last = MONO_FRAMES - 1
     final_err = float(np.linalg.norm(fe.pose[:3, 3] - seq.gt_pose(last)[:3, 3]))
     surfels = eng.surfel_count("cam0")
     trk = fe.sparse_tracker
     syncs, flushed = np.array(syncs, float), np.array(flushed)
     walls = 1e3 * np.array(walls)
-    log(f"[mono] {n_timed} timed frames (70-519) in {dt:.3f} s: {n_timed / dt:.3f} fps, "
+    log(f"[mono] {n_timed} timed frames ({STREET_WARMUP}-{last}) in {dt:.3f} s: {n_timed / dt:.3f} fps, "
         f"{1e3 * dt / n_timed:.2f} ms/frame; frame wall median {np.median(walls):.2f} ms, "
         f"max {walls.max():.2f} ms")
     log(f"[mono] ATE {ate:.4f} m against gt_pose(i); final live pose {final_err:.3f} m from "
@@ -966,11 +990,11 @@ def phase_mono_street(seq: StreetSequence, frames: list) -> dict:
     for name, (n, us) in top:
         log(f"[mono] device op {name[:90]}: {n / STREET_PROFILED:.1f}/frame, "
             f"{us / 1e3 / STREET_PROFILED:.3f} ms/frame")
-    log(f"[mono] launches over all 520 frames: gram {launches['gram']} "
-        f"({launches['gram'] / STREET_FRAMES:.2f}/frame), deform {launches['deform']}; "
+    log(f"[mono] launches over the {MONO_FRAMES} frames: gram {launches['gram']} "
+        f"({launches['gram'] / MONO_FRAMES:.2f}/frame), deform {launches['deform']}; "
         f"gram by (P, C): {shapes}")
-    log(f"[mono] R1 (the JAX package closes no hybrid loop on this lap): the port closed "
-        f"{fe.loops_closed} hybrid loop(s)")
+    log(f"[mono] hybrid loops closed in the first {MONO_FRAMES} frames: {fe.loops_closed} (the "
+        f"lap's loop comes at its end)")
     if not np.isfinite(stats[:, stepmod.STAT_POSE0:]).all() or not np.isfinite(np.stack(est)).all():
         raise AssertionError("non-finite poses on the mono street lap")
     if not surfels > 100_000:
@@ -1069,9 +1093,619 @@ def phase_hybrid_closure() -> dict:
     return dict(launches=launches, k2=k2)
 
 
+# ---------------------------------------------------------------------------
+# multi-camera: two frontends in one process, then a collaborative session
+# of two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# tests/test_intermap.py:31-39's configuration, the map scaled 8x with the
+# 16x pixels of 640x480 to the other legs' 1<<20 rows per camera
+MULTI = dict(
+    max_surfels=1 << 20, depth_cutoff=8.0, depth_factor=1.0, nid_keyframing=False,
+    open_loop=False, loop_check_interval=4, time_delta=500, confidence_threshold=1.0,
+)
+MULTI_OFFSET, MULTI_TRACKED = 6, 16
+# tests/test_intermap_collab.py's session (:31-39) and full pipeline
+# (:218-226), the maps scaled 16x with the pixels to 1<<20 rows.  The full
+# pipeline's lap jumps 10 orbit frames back; at 160x120 the test's 3
+# pyramid levels end at 40x30, and at 640x480 the same coarsest size takes 5
+# (with 3 or 4 levels neither camera closes a loop after the jump), with
+# the bench's row stride 2 at this resolution
+COLLAB_STEP = dict(
+    max_surfels=1 << 20, depth_cutoff=8.0, depth_factor=1.0, nid_keyframing=False,
+    open_loop=True, time_delta=200, max_depth=8.0,
+)
+COLLAB_LOOP = dict(
+    max_surfels=1 << 20, depth_cutoff=8.0, depth_factor=1.0, max_depth=8.0, nid_keyframing=True,
+    nid_threshold=0.85, open_loop=False, time_delta=30, deform_graph_sample_rate=2000,
+    max_deform_nodes=256, loop_min_inactive_frac=0.05, loop_cons_err_thresh=0.02,
+    pyramid_levels=5, track_row_stride=2,
+)
+COLLAB_LAP, COLLAB_TOTAL, COLLAB_OFF = 30, 52, 6
+IM_SOLO, IM_ROUNDS, IM_ROUND = 16, 14, dict(verify_scale=2, fern_factor=4)
+COLLAB_TIMEOUT_S = 900
+CONSUME_ATOL = 1e-5  # tests/test_torch_intermap.py's tolerance on map rows
+
+
+def _offset() -> np.ndarray:
+    """camB's private world frame differs from camA's by this transform
+    (`tests/test_intermap.py`)."""
+    T = np.eye(4, dtype=np.float32)
+    c, s_ = np.cos(0.4), np.sin(0.4)
+    T[:3, :3] = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
+    T[:3, 3] = [1.0, 0.3, -0.5]
+    return T
+
+
+def _rot_err(R: np.ndarray) -> float:
+    return float(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))
+
+
+def _surface_distance(seq: SyntheticSequence, p: np.ndarray) -> np.ndarray:
+    """Each point's distance to the analytic scene (walls and spheres)."""
+    lo, hi = seq.scene.lo, seq.scene.hi
+    on_wall = np.min(np.minimum(np.abs(p - lo), np.abs(p - hi)), axis=1)
+    on_sphere = np.min(np.abs(
+        np.linalg.norm(p[:, None, :] - seq.scene.sphere_c[None], axis=-1) - seq.scene.sphere_r[None]
+    ), axis=1)
+    return np.minimum(on_wall, on_sphere)
+
+
+def phase_two_cameras() -> dict:
+    """`tests/test_intermap.py`'s two cameras in one engine (camB in its own
+    frame, 6 orbit frames ahead, poses injected) until their maps merge,
+    each loop-check frame under `torch.profiler` so that the merge's
+    `merge.*` ranges are timed; then both track densely into the one map
+    for 16 more frames each; then `tests/test_engine.py`'s batch align."""
+    from torch.profiler import ProfilerActivity, profile
+
+    camera = _camera()
+    seq = SyntheticSequence(camera=camera, num_frames=40, radius=0.35, max_angle=0.3)
+    # host frames, as the bench feeds them (each uploaded by process_frame),
+    # rendered before they are needed so that no timing includes a render
+    frames = {i: seq.frame(i) for i in range(MULTI_OFFSET + 14 + MULTI_TRACKED + 1)}
+    cfg = EngineConfig(**MULTI)
+    eng = Engine(camera, cfg)
+    eng.frontend("camA")
+    eng.frontend("camB")
+    off = _offset()
+    eng.frontends["camA"].pose = seq.gt_pose(0).astype(np.float32)
+    eng.frontends["camB"].pose = (off @ seq.gt_pose(MULTI_OFFSET)).astype(np.float32)
+    merge_walls = []
+    merge_into = eng.merge_into
+
+    def timed_merge(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merge_into(*a)
+        torch.cuda.synchronize()
+        merge_walls.append(1e3 * (time.perf_counter() - t0))
+
+    eng.merge_into = timed_merge
+    reset_counts()  # count only this path's launches from here
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    merged_at, prof = None, None
+    last = {"camA": 0, "camB": MULTI_OFFSET}
+    for k in range(14):
+        for name, i, pose in (("camA", k, seq.gt_pose(k)),
+                              ("camB", MULTI_OFFSET + k, off @ seq.gt_pose(MULTI_OFFSET + k))):
+            fe = eng.frontends[name]
+            frame = frames[i]
+            if (fe.tick + 1) % cfg.loop_check_interval == 0:
+                with profile(activities=activities) as p_:
+                    eng.process_frame(name, *frame, float(i), in_pose=pose.astype(np.float32))
+                    torch.cuda.synchronize()
+                prof = p_
+            else:
+                eng.process_frame(name, *frame, float(i), in_pose=pose.astype(np.float32))
+            last[name] = i
+            if len(eng.maps) == 1:
+                merged_at = (name, k)
+                break
+        if merged_at:
+            break
+    if merged_at is None:
+        raise AssertionError("the two cameras' maps never merged")
+    feA, feB = eng.frontends["camA"], eng.frontends["camB"]
+    be = eng.maps[feA.map_name]
+    d = np.linalg.inv(np.linalg.inv(feA.pose) @ feB.pose) @ (
+        np.linalg.inv(seq.gt_pose(last["camA"])) @ seq.gt_pose(last["camB"])
+    )
+    terr, rerr = float(np.linalg.norm(d[:3, 3])), _rot_err(d[:3, :3])
+    p = sm.snapshot(eng.map_of(be.name)).positions
+    if np.linalg.norm(feA.pose[:3, 3] - seq.gt_pose(last["camA"])[:3, 3]) >= 0.1:
+        inv = np.linalg.inv(off)  # the merged map lives in camB's frame
+        p = (inv[:3, :3] @ p.T).T + inv[:3, 3]
+    med = float(np.median(_surface_distance(seq, p)))
+    ranges = _range_device_ms(prof, "merge.")
+    log(f"[two cameras] merged at camera {merged_at[0]}'s frame {last[merged_at[0]]} (step "
+        f"{merged_at[1]}): relative pose error {terr * 1e3:.3f} mm, {rerr:.5f} rad (bounds 50 mm, "
+        f"0.05 rad); merged map {eng.surfel_count(be.name)} surfels, median distance to the scene "
+        f"{med * 1e3:.4f} mm (bound 20 mm); surfels dropped {be.dropped}")
+    log(f"[two cameras] merge_into {merge_walls[0]:.2f} ms (synchronised host wall, under the "
+        f"profiler)")
+    for key, (calls, dev_ms, host_ms) in sorted(ranges.items()):
+        log(f"[two cameras] {key:16s} {calls} call(s), host {host_ms:8.2f} ms, device {dev_ms:8.3f} ms")
+    if not (terr < 0.05 and rerr < 0.05):
+        raise AssertionError(f"merge relative pose error {terr:.4f} m, {rerr:.4f} rad")
+    if not med < 0.02:
+        raise AssertionError(f"merged map median surface distance {med:.4f} m")
+    # both cameras track densely into the one map, no pose injection
+    ia, ib = last["camA"] + 1, last["camB"] + 1
+    n0 = {name: len(fe.ts_log) for name, fe in eng.frontends.items()}
+    torch.cuda.synchronize()
+
+    def track():
+        t0 = time.perf_counter()
+        for j in range(MULTI_TRACKED):
+            eng.process_frame("camA", *frames[ia + j], float(ia + j), sync=False)
+            eng.process_frame("camB", *frames[ib + j], float(ib + j), sync=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    dt, syncs = _count_syncs(track)
+    ates = {}
+    for name, first in (("camA", ia), ("camB", ib)):
+        est = [q for _, q in eng.frontends[name].trajectory[n0[name]:]]
+        ates[name] = ate_rmse(est, [seq.gt_pose(first + j) for j in range(MULTI_TRACKED)])
+    n_cf = 2 * MULTI_TRACKED
+    log(f"[two cameras] then {MULTI_TRACKED} frames each, tracked into the one map: "
+        f"{1e3 * dt / n_cf:.2f} ms per camera-frame ({n_cf / dt:.2f} camera-frames/s), host syncs "
+        f"{syncs / n_cf:.2f} per camera-frame; ATE camA {ates['camA'] * 1e3:.3f} mm, camB "
+        f"{ates['camB'] * 1e3:.3f} mm; map {eng.surfel_count(be.name)} surfels")
+    if not all(np.isfinite(fe.pose).all() for fe in eng.frontends.values()):
+        raise AssertionError("non-finite poses after the merge")
+    # where a camera-frame's time goes: 2 more frames each, profiled
+    n_p = 2
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for j in range(MULTI_TRACKED, MULTI_TRACKED + n_p):
+            eng.process_frame("camA", *frames[ia + j], float(ia + j), sync=False)
+            eng.process_frame("camB", *frames[ib + j], float(ib + j), sync=False)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / (2 * n_p)
+    busy, ops = _device_us(prof)
+    log(f"[two cameras] {2 * n_p} camera-frames under the profiler: {wall:.2f} ms wall, device "
+        f"busy {busy / 1e3 / (2 * n_p):.3f} ms, {ops / (2 * n_p):.0f} device ops per camera-frame")
+    for key, (calls, dev_ms, host_ms) in sorted(_range_device_ms(prof, "frame.").items()):
+        log(f"[two cameras] {key:18s} {calls} calls, device {dev_ms / (2 * n_p):.3f} ms, host "
+            f"{host_ms / (2 * n_p):.2f} ms per camera-frame")
+    for name, (n, us) in _top_device_ops(prof, 5):
+        log(f"[two cameras] device op {name[:80]}: {n / (2 * n_p):.1f}/camera-frame, "
+            f"{us / 1e3 / (2 * n_p):.3f} ms/camera-frame")
+    # tests/test_engine.py's batch align, at this resolution
+    eng2 = Engine(camera, EngineConfig(max_surfels=MULTI["max_surfels"], depth_cutoff=8.0,
+                                       depth_factor=1.0))
+    eng2.frontend("camA")
+    eng2.frontend("camB")
+    for i in range(3):
+        eng2.process_frame("camA", *frames[i], float(i))
+    for i in range(3, 6):
+        eng2.process_frame("camB", *frames[i], float(i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng2.batch_align("camA", "camB", merge=True)
+    torch.cuda.synchronize()
+    ba_ms = 1e3 * (time.perf_counter() - t0)
+    if out is None:
+        raise AssertionError("batch align rejected a genuine overlap")
+    T_ab, inl, rms = out
+    T_true = np.linalg.inv(seq.gt_pose(3)) @ seq.gt_pose(0)
+    bterr = float(np.linalg.norm(T_ab[:3, 3] - T_true[:3, 3]))
+    log(f"[batch align] inliers {inl} (gate >= 30), rms {rms:.4f} (gate < 0.25), translation "
+        f"error {bterr * 1e3:.2f} mm (bound 200 mm), {ba_ms:.1f} ms with the merge; maps "
+        f"{len(eng2.maps)}")
+    if not (inl >= 30 and rms < 0.25 and bterr < 0.2 and len(eng2.maps) == 1):
+        raise AssertionError(f"batch align: inliers {inl}, rms {rms}, error {bterr}")
+    launches, shapes = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES), by_shape()
+    log(f"[two cameras] launches with the batch align: gram {launches['gram']}, deform "
+        f"{launches['deform']}; gram by (P, C): {shapes}")
+    return dict(launches=launches, shapes=shapes)
+
+
+def _noisy_pose_graph(K: int = 16, noise: float = 0.03, seed: int = 0):
+    """`tests/test_ba.py`'s ring of 16 keyframes: exact odometry edges, an
+    exact loop edge, and a drifted initial estimate."""
+    from densemonoslam_tpu_torch.utils import se3
+
+    rng = np.random.default_rng(seed)
+    gt = []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        T[:3, 3] = [np.sin(a), 0.1 * np.sin(2 * a), np.cos(a) - 1]
+        gt.append(T)
+    Z = [np.linalg.inv(gt[k]) @ gt[k + 1] for k in range(K - 1)] + [np.linalg.inv(gt[-1]) @ gt[0]]
+    ei, ej = list(range(K)), list(range(1, K)) + [0]
+    est = [gt[0]]
+    for k in range(K - 1):
+        xi = torch.from_numpy(rng.normal(0, noise, 6).astype(np.float32))
+        est.append(est[-1] @ Z[k] @ se3.se3_exp(xi).numpy())
+    return (np.stack(gt), np.stack(est).astype(np.float32), np.array(ei), np.array(ej),
+            np.stack(Z).astype(np.float32), np.ones(K, np.float32))
+
+
+def _ba_problem_ring(K: int = 6, Pn: int = 64, seed: int = 0):
+    """`tests/test_ba.py`'s BA problem: 6 cameras on a ring, 64 points, the
+    first two poses at the truth."""
+    from densemonoslam_tpu_torch.utils import se3
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = 100.0, 100.0, 63.5, 47.5
+    gt = []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        T[:3, 3] = [0.4 * np.sin(a), 0.1 * np.sin(2 * a), 0.4 * (np.cos(a) - 1)]
+        gt.append(T)
+    pts = rng.uniform(-1.0, 1.0, (Pn, 3)).astype(np.float32)
+    pts[:, 2] += 3.0
+    cam, pnt, uv = [], [], []
+    for c in range(K):
+        Tinv = np.linalg.inv(gt[c])
+        for q in range(Pn):
+            X = Tinv[:3, :3] @ pts[q] + Tinv[:3, 3]
+            u, v = X[0] / X[2] * fx + cx, X[1] / X[2] * fy + cy
+            if X[2] >= 0.2 and 0 <= u < 128 and 0 <= v < 96:
+                cam.append(c)
+                pnt.append(q)
+                uv.append([u, v])
+    poses = []
+    for c in range(K):
+        xi = rng.normal(0, 0.02, 6).astype(np.float32) * (c > 1)
+        poses.append(gt[c] @ se3.se3_exp(torch.from_numpy(xi)).numpy())
+    points = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
+    return CameraIntrinsics(fx, fy, cx, cy), dict(
+        poses=np.stack(poses).astype(np.float32), points=points.astype(np.float32),
+        cam_idx=np.array(cam, np.int64), pnt_idx=np.array(pnt, np.int64),
+        uv=np.array(uv, np.float32), valid=np.ones(len(cam), bool), z=np.zeros(len(cam), np.float32),
+    ), np.stack(gt)
+
+
+def _widened(state, rows: int):
+    """`state` with its map copied into a map of `rows` more rows (the
+    added rows empty, the dump slot last)."""
+    data = state.map_data
+    return state.replace(map_data=torch.cat([data[:-1], data.new_zeros((rows + 1, data.shape[1]))]))
+
+
+def collab_rank(leg: str) -> dict:
+    """One rank of the collaborative session, in a process of its own,
+    joined through `multihost.initialize()` from the environment.  `leg`
+    "solo" times the session's collab steps alone (world 1); "session" also
+    runs, on 2 ranks, `tests/test_intermap_collab.py`'s inter-map session
+    until a merge (and the merge round again with `consume=True` on the
+    same inputs, the maps widened to twice their rows so that the target
+    has room for every live row of the source), its full pipeline (collab
+    steps + local-loop rounds), distributed PGO and BA against the
+    single-device solves, and the sharded K2 apply over a (cam 1 x map 2)
+    mesh against one rank's K2.  Returns what the parent checks and sums."""
+    import copy
+
+    from densemonoslam_tpu_torch.parallel import ba as pba
+    from densemonoslam_tpu_torch.parallel import collab, intermap, map_shard, multihost
+    from densemonoslam_tpu_torch.parallel import mesh as meshmod
+
+    if not multihost.initialize():
+        raise RuntimeError("the rank found no session in its environment")
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    camera = _camera()
+    W, H = camera.resolution.width, camera.resolution.height
+    intr = camera.intrinsics
+    res: dict = dict(rank=rank)
+
+    def rlog(msg: str) -> None:
+        log(f"[rank {rank}] {msg}")
+
+    seq = SyntheticSequence(camera=camera, num_frames=40, radius=0.3, max_angle=0.25)
+    frames = {i: seq.frame(i) for i in range(40)}
+    # ---- the session's collab steps, timed (the solo leg is this alone) ----
+    cfg = EngineConfig(**COLLAB_STEP)
+    reset_counts()
+    sess = multihost.MultiHostSession(intr, H, W, cfg)
+    off = rank * COLLAB_OFF
+    warm = 4
+    for i in range(warm):
+        sess.step(frames[i + off][0][None], frames[i + off][1][None])
+    torch.cuda.synchronize()
+    c0 = dict(meshmod.COUNTS)
+    t0 = time.perf_counter()
+    for i in range(warm, IM_SOLO):
+        sess.step(frames[i + off][0][None], frames[i + off][1][None])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_steps = IM_SOLO - warm
+    per_step = {k: (v - c0.get(k, 0)) / n_steps for k, v in meshmod.COUNTS.items()}
+    res["fps"] = world * n_steps / dt  # camera-frames per second over the ranks
+    res["per_step"] = per_step
+    rlog(f"{n_steps} timed collab steps in {dt:.3f} s: {1e3 * dt / n_steps:.2f} ms per step, "
+         f"{res['fps']:.2f} camera-frames/s over {world} rank(s); per step: {per_step}")
+    # where a collab step's time goes, the collectives split out
+    from torch.profiler import ProfilerActivity, profile
+
+    n_p = 4
+    saved = copy.deepcopy(sess.state)  # the profiled steps leave the session as it was
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(IM_SOLO, IM_SOLO + n_p):
+            sess.step(frames[i + off][0][None], frames[i + off][1][None])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t1) / n_p
+    sess.state, sess.ticks = saved, sess.ticks - n_p
+    busy, ops = _device_us(prof)
+    coll = _range_device_ms(prof, "collective.")
+    res["profile"] = dict(wall_ms=wall, busy_ms=busy / 1e3 / n_p, ops=ops / n_p, collective_host_ms={
+        k: host / n_p for k, (_, _, host) in coll.items()})
+    rlog(f"{n_p} collab steps under the profiler: {res['profile']}")
+    if leg == "solo":
+        res["launches"] = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+        res["shapes"] = {f"{p}x{c}": n for (p, c), n in by_shape().items()}
+        return res
+
+    # ---- inter-map rounds until a merge, then consume on the same inputs ----
+    sess.enable_intermap(**IM_ROUND)
+    consume = intermap.make_intermap_round(sess.mesh, intr, H, W, cfg, consume=True, **IM_ROUND)
+    info, round_ms = None, []
+    for i in range(IM_SOLO, IM_SOLO + IM_ROUNDS):
+        rgb, dep = frames[i + off]
+        sess.step(rgb[None], dep[None])
+        pre = (copy.deepcopy(sess.state), copy.deepcopy(sess._im_state))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        info = sess.intermap_round(rgb[None], dep[None])
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t1))
+        if info.merged:
+            break
+    res["merge"] = {k: np.asarray(v).tolist() for k, v in info._asdict().items()}
+    res["merge_frame"] = i
+    res["pose_after"] = sess.state.pose.cpu().numpy().tolist()
+    rlog(f"inter-map: {len(round_ms)} rounds, {np.mean(round_ms):.1f} ms per round; merged "
+         f"{bool(info.merged)} at frame {i}: requester {int(info.requester)}, target "
+         f"{int(info.target)}, map ids {info.map_ids.tolist()}")
+    c1 = dict(meshmod.COUNTS)
+    rgb_d, dep_d = torch.as_tensor(rgb, device="cuda"), torch.as_tensor(dep, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, ist, cinfo = consume(_widened(pre[0], cfg.max_surfels), pre[1], rgb_d, dep_d)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    req, before, after = int(cinfo.requester), int(pre[0].map_count), int(state.map_count)
+    # the rows the target appended must be the source's live rows moved by
+    # T: the source's rows as they were come over once more (not counted)
+    src = pre[0].map_data[:-1].clone()
+    torch.distributed.broadcast(src, req)
+    live = src[src[:, sm.CONF] > 0].double()
+    T = cinfo.T[req].double()
+    want = live.clone()
+    want[:, sm.POS] = live[:, sm.POS] @ T[:3, :3].T + T[:3, 3]
+    want[:, sm.NORMAL] = live[:, sm.NORMAL] @ T[:3, :3].T
+    got = state.map_data[before:after].double()
+    res["consume"] = dict(
+        merged=bool(cinfo.merged), requester=req, target=int(cinfo.target),
+        T=cinfo.T.cpu().numpy().tolist(), dropped=int(cinfo.dropped), count_before=before,
+        count_after=after, live_before=int((pre[0].map_data[:-1, sm.CONF] > 0).sum()),
+        ferns_after=int(ist.count), ms=ms,
+        rows_err=float((got - want).abs().max()) if got.shape == want.shape else float("inf"),
+        bytes={k: v - c1.get(k, 0) for k, v in meshmod.COUNTS.items() if "bytes" in k},
+    )
+    rlog(f"consume round on the merge round's inputs: {res['consume']}")
+    del sess, pre, state, ist, src, live, want, got
+
+    # ---- tests/test_intermap_collab.py's full pipeline ----------------------
+    lcfg = EngineConfig(**COLLAB_LOOP)
+    mesh = meshmod.make_mesh()
+    step = collab.make_collab_step(mesh, intr, H, W, lcfg)
+    loop_round = collab.make_collab_local_loop(mesh, intr, H, W, lcfg)
+    state = collab.init_state(lcfg.max_surfels, H, W)
+    bank = collab.init_rel_banks()
+    closed = np.zeros(world, np.int64)
+    t1 = time.perf_counter()
+    for i in range(COLLAB_TOTAL):
+        rgb, dep = frames[(i + off) % COLLAB_LAP]
+        state, stats, total = step(state, rgb, dep)
+        if i >= COLLAB_LAP and i % 4 == 0:
+            state, bank, infos = loop_round(state, bank)
+            infos = infos.cpu().numpy()
+            closed += (infos[:, 0] > 0).astype(np.int64)
+            rlog(f"local-loop round at frame {i}: (closed, inactive, inliers, icp error, "
+                 f"constraint error) per camera {infos.round(6).tolist()}")
+    torch.cuda.synchronize()
+    res["loops_closed"] = closed.tolist()
+    res["pipeline_s"] = time.perf_counter() - t1
+    res["map_count"] = int(state.map_count)
+    rlog(f"full pipeline: {COLLAB_TOTAL} frames with local-loop rounds in {res['pipeline_s']:.2f} s; "
+         f"loops closed per camera {closed.tolist()}; map {int(state.map_count)} surfels, "
+         f"session total {int(total)}")
+    del state
+    res["launches"] = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+
+    # ---- distributed PGO and BA against the single-device solves ------------
+    gt, est, ei, ej, Z, w = _noisy_pose_graph()
+    pad = (-len(ei)) % mesh.n_cams
+    T_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    edges = pba.PoseGraphEdges(
+        T_(np.concatenate([ei, np.zeros(pad, np.int64)])), T_(np.concatenate([ej, np.zeros(pad, np.int64)])),
+        T_(np.concatenate([Z, np.tile(np.eye(4, dtype=np.float32), (pad, 1, 1))])),
+        T_(np.concatenate([w, np.zeros(pad, np.float32)])),
+    )
+    dist_p, _ = pba.make_distributed_pgo(mesh)(T_(est), edges)
+    single_p, _ = pba.optimise_pose_graph(T_(est), edges)
+
+    def pose_err(p):
+        return float(np.mean(np.linalg.norm(p.cpu().numpy()[:, :3, 3] - gt[:, :3, 3], axis=1)))
+
+    res["pgo"] = dict(dist=pose_err(dist_p), single=pose_err(single_p), before=pose_err(T_(est)),
+                      max_diff=float((dist_p - single_p).abs().max()))
+    bintr, prob, _ = _ba_problem_ring()
+    lay = pba.shard_ba_problem(pba.BAProblem(**prob), mesh.n_cams)
+    dist_b, _, err_d = pba.make_distributed_ba(mesh, bintr, iters=4, fix_cameras=2)(
+        T_(prob["poses"]), *map(T_, lay))
+    single_b, err_s = pba.bundle_adjust(pba.BAProblem(**{k: T_(v) for k, v in prob.items()}),
+                                        bintr, iters=4, fix_cameras=2)
+    res["ba"] = dict(max_diff=float((dist_b - single_b.poses).abs().max()),
+                     err_dist=float(err_d), err_single=float(err_s))
+    rlog(f"distributed PGO {res['pgo']}; distributed BA {res['ba']}")
+
+    # ---- the sharded K2 apply over a (cam 1 x map 2) mesh ---------------------
+    mesh12 = meshmod.make_mesh(n_cams=1, n_map=world)
+    data, count, graph = _synthetic_deform_case()
+    k2 = deform.LAUNCHES
+    out = map_shard.make_sharded_apply_to_map(mesh12)(data.clone(), count, graph)
+    torch.cuda.synchronize()
+    res["launches"]["deform"] += deform.LAUNCHES - k2
+    one = deform.deform_map(data.clone(), count, graph)  # the comparison: not counted
+    torch.cuda.synchronize()
+    res["shard_equal"] = bool(torch.equal(out, one))
+    res["shard_moved"] = float((out[:, sm.POS] - data[:, sm.POS]).abs().max())
+    rlog(f"sharded K2 apply over map ranks: bit-identical to one rank's K2 {res['shard_equal']} "
+         f"(largest move {res['shard_moved']:.4f} m)")
+    res["shapes"] = {f"{p}x{c}": n for (p, c), n in by_shape().items()}
+    return res
+
+
+def _spawn_ranks(world: int, leg: str) -> list:
+    """Run `collab_rank(leg)` on `world` ranks over gloo, each in its own
+    process on this card with its output in a file (a rank that fills a
+    pipe nobody reads would stall its peers at a collective); echo their
+    logs; return their results."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "DMS_COORDINATOR": f"127.0.0.1:{port}", "DMS_NUM_HOSTS": str(world),
+           "DMS_BACKEND": "gloo"}
+    outs, failed = [], []
+    with tempfile.TemporaryDirectory(prefix="collab-ranks-") as tmp:
+        paths = [(os.path.join(tmp, f"rank{r}.out"), os.path.join(tmp, f"rank{r}.err"))
+                 for r in range(world)]
+        procs = []
+        try:
+            for r, (po, pe) in enumerate(paths):
+                with open(po, "w") as fo, open(pe, "w") as fe:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), "--collab-rank", leg],
+                        env={**env, "DMS_HOST_ID": str(r)}, stdout=fo, stderr=fe,
+                    ))
+            deadline = time.monotonic() + COLLAB_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, (p, (po, pe)) in enumerate(zip(procs, paths)):
+            with open(po) as fo, open(pe) as fe:
+                out, err = fo.read(), fe.read()
+            for line in out.splitlines():
+                if not line.startswith("RESULT "):
+                    log(line)
+            results = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not results:
+                failed.append(f"rank {r} exited {p.returncode}:\n{err[-4000:]}")
+            else:
+                outs.append(json.loads(results[-1][7:]))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def phase_collab() -> dict:
+    """The collaborative session: 1 rank alone, then 2 ranks on the card
+    (see `collab_rank`)."""
+    solo = _spawn_ranks(1, "solo")[0]
+    ranks = _spawn_ranks(2, "session")
+    return check_collab(solo, ranks)
+
+
+def check_collab(solo: dict, ranks: list) -> dict:
+    """Every check of the collaborative session, on what its ranks report."""
+    seq = SyntheticSequence(camera=_camera(), num_frames=40, radius=0.3, max_angle=0.25)
+    m0, m1 = ranks[0]["merge"], ranks[1]["merge"]
+    if m0 != m1:
+        raise AssertionError(f"the ranks disagree on the merge: {m0} != {m1}")
+    if not m0["merged"]:
+        raise AssertionError(f"the inter-map rounds never merged the maps: {m0}")
+    req, tgt = m0["requester"], m0["target"]
+    starts = {0: seq.gt_pose(0), 1: seq.gt_pose(COLLAB_OFF)}
+    T_true = np.linalg.inv(starts[tgt]) @ starts[req]
+    T = np.array(m0["T"][req])
+    terr, rerr = float(np.linalg.norm(T[:3, 3] - T_true[:3, 3])), _rot_err(T[:3, :3] @ T_true[:3, :3].T)
+    last = ranks[0]["merge_frame"]
+    pose_errs = [
+        float(np.linalg.norm(np.array(r["pose_after"])[:3, 3] - (
+            np.linalg.inv(starts[tgt]) @ seq.gt_pose(last + c * COLLAB_OFF))[:3, 3]))
+        for c, r in enumerate(ranks)
+    ]
+    log(f"[collab] both ranks report the same MergeInfo: requester {req}, target {tgt}, map ids "
+        f"{m0['map_ids']}; T against the truth {terr * 1e3:.2f} mm, {rerr:.4f} rad (bounds 120 mm, "
+        f"0.1 rad); poses in the merged frame {[round(e * 1e3, 2) for e in pose_errs]} mm (bound 200)")
+    c0, c1 = ranks[0]["consume"], ranks[1]["consume"]
+    live, ct = ranks[req]["consume"]["live_before"], ranks[tgt]["consume"]
+    same = ("merged", "requester", "target", "T", "dropped")
+    log(f"[collab] consume (maps widened to {2 * COLLAB_STEP['max_surfels']} rows): target "
+        f"{c0['target']}, its map {ct['count_before']} -> {ct['count_after']} rows "
+        f"({ct['count_after'] - ct['count_before']} moved of the source's {live} live rows, largest "
+        f"difference from the source's rows moved by T {ct['rows_err']:.3g}, bound {CONSUME_ATOL}); "
+        f"source emptied to {ranks[req]['consume']['count_after']}, dropped {c0['dropped']}; "
+        f"{ct['ms']:.1f} ms, {ct['bytes']}")
+    loops = ranks[0]["loops_closed"]
+    log(f"[collab] full pipeline: loops closed per camera {loops} (ranks agree: "
+        f"{ranks[0]['loops_closed'] == ranks[1]['loops_closed']})")
+    log(f"[collab] distributed PGO (rank 0): {ranks[0]['pgo']}; BA: {ranks[0]['ba']}")
+    log(f"[collab] sharded K2 apply bit-identical to one rank's K2: "
+        f"{[r['shard_equal'] for r in ranks]}")
+    log(f"[collab] camera-frames/s on the one card: 1 rank {solo['fps']:.2f}, 2 ranks "
+        f"{ranks[0]['fps']:.2f} (two ranks share one card: this is not scaling); per collab step "
+        f"on 2 ranks: {ranks[0]['per_step']}")
+    checks = [
+        (terr < 0.12 and rerr < 0.1, f"merge transform {terr:.4f} m, {rerr:.4f} rad"),
+        (max(pose_errs) < 0.2, f"poses after the merge {pose_errs}"),
+        (all(c0[k] == c1[k] for k in same), "the ranks disagree on the consume round"),
+        (c0["merged"] and c0["T"] == m0["T"], "the consume round did not make the same merge"),
+        (ranks[req]["consume"]["count_after"] == 0 and ranks[req]["consume"]["ferns_after"] == 0,
+         "consume left the source's map or ferns"),
+        (live > 0 and ct["count_after"] == ct["count_before"] + live and c0["dropped"] == 0,
+         "consume's counts"),
+        (ct["rows_err"] < CONSUME_ATOL, f"consume's appended rows differ by {ct['rows_err']}"),
+        (all(n >= 1 for n in loops) and ranks[0]["loops_closed"] == ranks[1]["loops_closed"],
+         f"loops closed per camera {loops}"),
+        (all(r["pgo"]["dist"] < 0.3 * r["pgo"]["before"] and r["pgo"]["max_diff"] < 2e-4
+             for r in ranks), "distributed PGO"),
+        (all(r["ba"]["max_diff"] < 1e-3 and abs(r["ba"]["err_dist"] - r["ba"]["err_single"]) < 0.05
+             for r in ranks), "distributed BA"),
+        (all(r["shard_equal"] and r["shard_moved"] > 0 for r in ranks), "sharded K2 apply"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"collab: {what}")
+    launches = dict(gram=solo["launches"]["gram"] + sum(r["launches"]["gram"] for r in ranks),
+                    deform=solo["launches"]["deform"] + sum(r["launches"]["deform"] for r in ranks))
+    shapes: dict = {}
+    for r in [solo, *ranks]:
+        for key, n in r["shapes"].items():
+            shape = tuple(int(x) for x in key.split("x"))
+            shapes[shape] = shapes.get(shape, 0) + n
+    log(f"[collab] launches over the ranks: gram {launches['gram']}, deform {launches['deform']}; "
+        f"gram by (P, C): {dict(sorted(shapes.items(), reverse=True))}")
+    if launches["gram"] == 0 or launches["deform"] == 0:
+        raise AssertionError(f"the collaborative session launched {launches}")
+    return dict(launches=launches, shapes=shapes, fps_1=solo["fps"], fps_2=ranks[0]["fps"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA GPU")
+    if sys.argv[1:2] == ["--collab-rank"]:  # one rank of `phase_collab`'s session
+        res = collab_rank(sys.argv[2])
+        print("RESULT " + json.dumps(res), flush=True)
+        torch.distributed.destroy_process_group()
+        return 0
     street = StreetRender()  # forks its workers before any CUDA work
     try:
         return run(street)
@@ -1118,10 +1752,15 @@ def run(street: StreetRender) -> int:
     hybrid = phase_hybrid_closure()
     torch.cuda.empty_cache()
     lap("hybrid closure")
+    two = phase_two_cameras()
+    torch.cuda.empty_cache()
+    lap("two cameras")
+    collab = phase_collab()
+    lap("collab session")
     # K1 at the shapes the legs launched it at that phase 1 did not cover,
     # then launches x (time - bound) per shape over the legs
     legs = {"open": slam["shapes"], "closed": closed["shapes"], "reloc": reloc["shapes"],
-            "mono": mono["shapes"]}
+            "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"]}
     seen = sorted({shape for leg in legs.values() for shape in leg}, reverse=True)
     more = phase_gram([shape for shape in seen if shape not in k1["times"]])
     k1["times"].update(more["times"])
@@ -1146,7 +1785,7 @@ def run(street: StreetRender) -> int:
             "source": "densemonoslam_tpu_torch/csrc/gram.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
             "launches": slam["launches"] + closed["launches"]["gram"] + reloc["launches"]
-            + mono["launches"]["gram"],
+            + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"],
             "launches_per_call": g["launches_per_call"],
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
@@ -1162,7 +1801,7 @@ def run(street: StreetRender) -> int:
             "source": "densemonoslam_tpu_torch/csrc/deform.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/deform.py:201",
             "launches": closed["launches"]["deform"] + mono["launches"]["deform"]
-            + hybrid["launches"],
+            + hybrid["launches"] + two["launches"]["deform"] + collab["launches"]["deform"],
             "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
             "ms": k2_real["ms"],
             "prev_ms": k2_real["prev_ms"],

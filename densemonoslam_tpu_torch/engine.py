@@ -1,5 +1,5 @@
 """The SLAM engine: host-side orchestration around the per-frame step (port
-of `densemonoslam_tpu.engine` for one camera and one map).
+of `densemonoslam_tpu.engine`).
 
 `Engine.process_frame` uploads a frame, runs `step.make_step`'s step, logs
 the stats vector, records the tracked pose in a device pose history and
@@ -17,8 +17,17 @@ pose graph is re-optimised the pose history is rewritten from the keyframe
 corrections, and with `hybrid_loops` its loop pairs drive a hybrid closure
 of the dense map.
 
-A second frontend raises `NotImplementedError` (not ported yet).  Entry
-points run on the card unless the caller passes `device="cpu"`.
+Several cameras share one engine, one process and one card, as the
+reference multiplexes its contexts through one GPU: each `frontend` is a
+camera with its own state and sensor id, in a map of its own.  At the
+loop-check cadence a camera whose view another map's ferns recognise, and
+whose pose there passes the geometric verification, merges its map into
+that one (`merge_into`); `batch_align` aligns two cameras' views without an
+initial guess.  Frontends that share a map fuse into the one map tensor:
+each step installs the map's current tensors first, and a compaction or a
+merge hands its new tensors to every member frontend.
+
+Entry points run on the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from densemonoslam_tpu_torch.mapping import deformation as dg
 from densemonoslam_tpu_torch.mapping import ferns as fernmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import preprocess
-from densemonoslam_tpu_torch.tracking import odometry
+from densemonoslam_tpu_torch.tracking import odometry, registration
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 from densemonoslam_tpu_torch.utils.stats import SessionStats
 
@@ -123,13 +132,15 @@ class Frontend:
 @dataclasses.dataclass
 class MapBackend:
     """Per-map state (reference `ReferenceFrame`): the canonical surfel
-    tensor, which the frontend's state holds too (the same tensor, updated
+    tensor, which its frontends' states hold too (the same tensor, updated
     in place by fusion and by loop closures)."""
 
     name: str
     map_data: Optional[torch.Tensor] = None  # [N+1, 16]
     map_count: Optional[torch.Tensor] = None  # []
+    contexts: List[str] = dataclasses.field(default_factory=list)  # member frontends
     deforms: int = 0
+    dropped: int = 0  # surfels lost to capacity in merges
     # carried relative constraints: emitted by accepted local deformations,
     # consumed by every later deformation of this map
     rel_bank: Optional[loopsmod.RelBank] = None
@@ -169,12 +180,12 @@ class Engine:
         self._depth_predictor = predictor
 
     def frontend(self, name: str, sensor_id: Optional[int] = None) -> Frontend:
-        """Create the camera frontend, in its own map."""
+        """Create a camera frontend in its own new map (reference
+        `ElasticFusion::frontend`); sensor ids count up from 0."""
         if name in self.frontends:
             return self.frontends[name]
-        if self.frontends:
-            raise NotImplementedError("a second frontend (multi-camera) is not ported yet")
-        sensor_id = 0 if sensor_id is None else min(sensor_id, self.config.max_sensors - 1)
+        sensor_id = len(self.frontends) if sensor_id is None else sensor_id
+        sensor_id = min(sensor_id, self.config.max_sensors - 1)
         res = self.camera.resolution
         fe = Frontend(
             name=name,
@@ -190,7 +201,7 @@ class Engine:
         )
         self.frontends[name] = fe
         self.maps[name] = MapBackend(
-            name=name, map_data=fe.state.map_data, map_count=fe.state.map_count
+            name=name, map_data=fe.state.map_data, map_count=fe.state.map_count, contexts=[name]
         )
         return fe
 
@@ -203,16 +214,22 @@ class Engine:
         cfg = self.config
         return cfg.active_window if cfg.active_window < cfg.max_surfels else 0
 
-    def _compact_now(self, fe: Frontend, be: MapBackend) -> None:
+    def _set_map(self, be: MapBackend, data: torch.Tensor, count: torch.Tensor) -> None:
+        """New map tensors for the backend and every member frontend."""
+        be.map_data, be.map_count = data, count
+        for name in be.contexts:
+            fe = self.frontends[name]
+            fe.state = fe.state.replace(map_data=data, map_count=count)
+
+    def _compact_now(self, be: MapBackend) -> None:
         """Re-partition the map [inactive..., active...] now; after a closed
         loop this brings the reactivated surfels into the active tail window
         that tracking and fusion stream."""
         m = sm.compact(
-            self.map_of(fe.map_name), time=float(self.global_tick),
+            self.map_of(be.name), time=float(self.global_tick),
             time_delta=self.config.time_delta, max_active=self._max_active(),
         )
-        be.map_data, be.map_count = m.data, m.count
-        fe.state = fe.state.replace(map_data=m.data, map_count=m.count)
+        self._set_map(be, m.data, m.count)
 
     def _rewrite_history_from_pgo(self, fe: Frontend, ev) -> None:
         """Apply the sparse tracker's PGO keyframe corrections to the pose
@@ -248,7 +265,7 @@ class Engine:
                     db=db._replace(poses=dg.apply_to_poses(graph, db.poses, db.times))
                 )
         with record_function("loop.compact"):
-            self._compact_now(fe, be)
+            self._compact_now(be)
 
     def map_of(self, map_name: str) -> sm.SurfelMap:
         be = self.maps[map_name]
@@ -304,7 +321,7 @@ class Engine:
                 fe.state, rgb, depth_raw, pose_in, use_in, cfg.fusion_weight_multiplier,
                 float(cluster),
             )
-        be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
+        self._set_map(be, fe.state.map_data, fe.state.map_count)
         fe.record_pose(stats, self.global_tick)
         self.global_tick += 1
         fe.ts_log.append(timestamp)
@@ -312,7 +329,7 @@ class Engine:
         fe.tick += 1
         if fe.tick % self._compact_interval == 0:
             # reclaims culled slots and re-partitions [inactive..., active...]
-            self._compact_now(fe, be)
+            self._compact_now(be)
         # lost-tracking state machine: the bad-frame counter lives on the
         # device; poll it at the loop-check cadence from a frame two cadences
         # back (long finished, so the read does not drain the queue), or
@@ -344,12 +361,16 @@ class Engine:
                 fe.state, linfo, lgraph, be.rel_bank = loopsmod.try_local_loop(
                     fe.state, fe.camera, cfg, rel_bank=be.get_rel_bank()
                 )
-                be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
+                self._set_map(be, fe.state.map_data, fe.state.map_count)
                 fe.last_loop_info = linfo
                 if linfo.closed:
                     fe.loops_closed += 1
                     be.deforms += 1
                     self._on_loop_closed(fe, be, lgraph)
+            # inter-map: another map's ferns may recognise this view
+            if tracking_healthy and len(self.maps) > 1:
+                with record_function("loop.intermap"):
+                    self._try_intermap(fe, rgb, depth_raw)
         if not sync:
             return {}
         row = stats.cpu().numpy()
@@ -395,7 +416,7 @@ class Engine:
                 fe.state, linfo, lgraph = loopsmod.apply_hybrid_loop(
                     fe.state, C, fe.camera, cfg, rel_bank=be.get_rel_bank()
                 )
-                be.map_data, be.map_count = fe.state.map_data, fe.state.map_count
+                self._set_map(be, fe.state.map_data, fe.state.map_count)
                 fe.last_loop_info = linfo
                 if linfo.closed:
                     fe.loops_closed += 1
@@ -443,6 +464,114 @@ class Engine:
             model_age=torch.full_like(fe.state.model_age, stepmod.MODEL_INVALID_AGE),
         )
         return True
+
+    def _try_intermap(self, fe: Frontend, rgb: torch.Tensor, depth_raw: torch.Tensor) -> None:
+        """Try to localise this camera in another map and merge the maps on
+        success (reference `resolveRelativeTransformationFern`, then
+        `consumeReferenceFrame`): each other map with a fern DB is queried
+        with this view's code, and the first one that verifies is merged
+        into (this camera's map moves into its frame)."""
+        cfg = self.config
+        if fe.fern_state is None:
+            return
+        depth_m = depth_raw / cfg.depth_factor
+        ff = loopsmod.fern_factor(cfg)
+        code = fernmod.encode(
+            fe.fern_state.coder, fernmod.downsample_for_ferns(rgb.to(torch.float32), ff),
+            fernmod.downsample_for_ferns(depth_m, ff),
+        )
+        frame_pyr = odometry.build_frame_pyramid(
+            rgb, depth_m, fe.camera.intrinsics, cfg.pyramid_levels
+        )
+        for other_name, other_be in list(self.maps.items()):
+            if other_name == fe.map_name:
+                continue
+            other_fe = next(
+                (self.frontends[n] for n in other_be.contexts
+                 if self.frontends[n].fern_state is not None), None,
+            )
+            if other_fe is None:
+                continue
+            pose_in_b, ok, _info = loopsmod.resolve_intermap(
+                frame_pyr, code, other_fe.fern_state.db, other_be.map_data,
+                other_be.map_count, fe.camera, cfg,
+            )
+            if ok:
+                # T maps this camera's map coordinates into the other map's
+                self.merge_into(fe.map_name, other_name, pose_in_b @ np.linalg.inv(fe.pose))
+                return
+
+    def batch_align(
+        self, name_a: str, name_b: str, merge: bool = False,
+        min_inliers: int = 30, max_rms: float = 0.25,
+    ):
+        """Initialisation-free alignment of camera `name_a`'s map onto camera
+        `name_b`'s (the reference GUI's "Batch Align", FGR's role): ORB
+        correspondences between the two cameras' current predicted views,
+        each backprojected with its own camera's intrinsics, then the
+        graduated-non-convexity rigid solve
+        (`registration.global_registration`).
+
+        Returns (T_ab world transform of map a into map b [4,4] numpy,
+        inliers, rms), or None when the solve fails the gates.  With
+        `merge=True` an accepted alignment merges the maps (`merge_into`)."""
+        fa, fb = self.frontends[name_a], self.frontends[name_b]
+        T_cam, inl, rms = registration.global_registration(
+            fa.state.pred_intensity, fa.state.pred_depth,
+            fb.state.pred_intensity, fb.state.pred_depth,
+            fa.camera.intrinsics, fb.camera.intrinsics,
+        )
+        if inl < min_inliers or rms > max_rms:
+            return None
+        # camera a -> camera b, lifted to the worlds: pose_b @ T_cam @ pose_a^-1
+        T_ab = (fb.pose @ T_cam.cpu().numpy() @ np.linalg.inv(fa.pose)).astype(np.float32)
+        if merge and fa.map_name != fb.map_name:
+            self.merge_into(fa.map_name, fb.map_name, T_ab)
+        return T_ab, int(inl), float(rms)
+
+    def merge_into(self, src_map: str, dst_map: str, T_ab: np.ndarray) -> None:
+        """Merge map `src_map` into `dst_map` with world transform `T_ab`
+        (reference `consumeReferenceFrame`): the surfels (then a compaction
+        of the merged map), the carried constraints, and every member
+        camera's pose, keyframe pose, pose history and fern keyframes move
+        into the destination's frame; the source map goes away."""
+        cfg = self.config
+        src, dst = self.maps[src_map], self.maps[dst_map]
+        T = torch.as_tensor(np.asarray(T_ab, np.float32), device=self.device)
+        with record_function("merge.maps"):
+            data, count, dropped = loopsmod.merge_maps(
+                dst.map_data, dst.map_count, src.map_data, src.map_count, T
+            )
+            dst.dropped += dropped  # overflow is surfaced, not silent
+        with record_function("merge.compact"):
+            # merge_maps does not re-sort: restore the [inactive..., active...]
+            # partition before the windowed passes read the merged map
+            m = sm.compact(
+                sm.SurfelMap(data=data, count=count), time=float(self.global_tick),
+                time_delta=cfg.time_delta, max_active=self._max_active(),
+            )
+        with record_function("merge.members"):
+            if src.rel_bank is not None:
+                dst.rel_bank = loopsmod.merge_rel_banks(dst.get_rel_bank(), src.rel_bank, T)
+            dst_fe = self.frontends[dst.contexts[0]]
+            for name in src.contexts:
+                f = self.frontends[name]
+                f.state = f.state.replace(
+                    pose=T @ f.state.pose, kf_pose=T @ f.state.kf_pose,
+                    model_age=torch.full_like(f.state.model_age, stepmod.MODEL_INVALID_AGE),
+                )
+                n = len(f.ts_log)
+                if n:
+                    # the whole trajectory moves into the destination's frame
+                    f.pose_hist[:n] = T @ f.pose_hist[:n]
+                if f.fern_state is not None and dst_fe.fern_state is not None:
+                    dst_fe.fern_state = dst_fe.fern_state._replace(
+                        db=loopsmod.consume_ferns(dst_fe.fern_state.db, f.fern_state.db, T)
+                    )
+                f.map_name = dst_map
+            dst.contexts.extend(src.contexts)
+            del self.maps[src_map]
+            self._set_map(dst, m.data, m.count)
 
     # ------------------------------------------------------------- exports
     def save_trajectory(self, name: str, path: str) -> None:

@@ -12,12 +12,16 @@ fern parts of `densemonoslam_tpu.loops`).
   pair deforms the map through constraints on a sparse grid of the ACTIVE
   prediction, with the INACTIVE prediction pinned.
 
+- **Inter-map merges**: recognising the live view in another map's ferns
+  (`resolve_intermap`), then absorbing that map: its surfels, relative
+  constraints and fern keyframes, transformed into the other map's frame
+  (`merge_maps`, `merge_rel_banks`, `consume_ferns`).
+
 These run at the engine's loop-check cadence (hybrid loops when the sparse
 tracker closes one).  The reference runs a loop as one jitted program with
 `lax.cond` gates (inactive coverage, the tracking gates, the deformation's
 acceptance); here each gate is one host read of a few device values, and
-only what a gate lets through runs.  Map merging and inter-map recognition
-are not ported.
+only what a gate lets through runs.
 """
 
 from __future__ import annotations
@@ -76,6 +80,34 @@ def rel_bank_from_numpy(d: Dict[str, np.ndarray], device: torch.device | str) ->
     return RelBank(cons=cons, next=torch.as_tensor(int(d["next"]), device=device))
 
 
+def _ring_put(old: torch.Tensor, dest: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """`old` with rows `dest` set to `new`; a `dest` of len(old) is dropped."""
+    buf = torch.cat([old, old[:1]])  # one spare row takes the dropped writes
+    buf[dest] = new.to(old.dtype)
+    return buf[: old.shape[0]]
+
+
+def merge_rel_banks(dst: RelBank, src: RelBank, T: torch.Tensor) -> RelBank:
+    """Map A's carried relative constraints, transformed by `T` into map B's
+    frame, appended to B's ring (reference `consumeReferenceFrame` moves the
+    member contexts' constraints)."""
+    sel = src.cons.valid
+    R = dst.cons.src.shape[0]
+    rank = torch.cumsum(sel.to(torch.int64), 0) - 1
+    dest = torch.where(sel, (dst.next + rank) % R, R)
+    d, s = dst.cons, src.cons
+    return RelBank(
+        cons=dg.RelConstraint(
+            src=_ring_put(d.src, dest, se3.transform_points(T, s.src)),
+            dst=_ring_put(d.dst, dest, se3.transform_points(T, s.dst)),
+            src_time=_ring_put(d.src_time, dest, s.src_time),
+            dst_time=_ring_put(d.dst_time, dest, s.dst_time),
+            valid=_ring_put(d.valid, dest, s.valid),
+        ),
+        next=(dst.next + sel.sum()) % R,
+    )
+
+
 def _emit_relative(
     bank: RelBank, graph: dg.DeformGraph, cons: dg.Constraint, n_src: int
 ) -> RelBank:
@@ -90,20 +122,14 @@ def _emit_relative(
     R = bank.cons.src.shape[0]
     rank = torch.cumsum(sel.to(torch.int64), 0) - 1
     dest = torch.where(sel, (bank.next + rank) % R, R)  # row R is dropped
-
-    def put(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-        buf = torch.cat([old, old[:1]])  # one spare row takes the dropped writes
-        buf[dest] = new.to(old.dtype)
-        return buf[:R]
-
     c = bank.cons
     return RelBank(
         cons=dg.RelConstraint(
-            src=put(c.src, moved),
-            dst=put(c.dst, cons.dst[:P]),
-            src_time=put(c.src_time, cons.time[:P]),
-            dst_time=put(c.dst_time, cons.time[P : 2 * P]),
-            valid=put(c.valid, torch.ones((P,), dtype=torch.bool, device=dev)),
+            src=_ring_put(c.src, dest, moved),
+            dst=_ring_put(c.dst, dest, cons.dst[:P]),
+            src_time=_ring_put(c.src_time, dest, cons.time[:P]),
+            dst_time=_ring_put(c.dst_time, dest, cons.time[P : 2 * P]),
+            valid=_ring_put(c.valid, dest, torch.ones((P,), dtype=torch.bool, device=dev)),
         ),
         next=(bank.next + sel.sum()) % R,
     )
@@ -460,3 +486,82 @@ def verify_recovery(
     ):
         return None, False, info
     return (recovery @ res.A).cpu().numpy(), True, info
+
+
+def _transform_rows(data_a: torch.Tensor, count_a: torch.Tensor, T: torch.Tensor):
+    """Map A's rows with positions and normals moved by `T` into another
+    map's frame, the live ones first in their order (dead rows get conf 0).
+    Returns (rows [Na, 16], number of live rows as a 0-dim tensor)."""
+    rows = data_a[:-1].clone()
+    idx = torch.arange(rows.shape[0], device=rows.device)
+    alive = (rows[:, sm.CONF] > 0) & (idx < count_a)
+    rows[:, sm.POS] = se3.transform_points(T, rows[:, sm.POS])
+    rows[:, sm.NORMAL] = se3.rotate_vectors(T, rows[:, sm.NORMAL])
+    rows[:, sm.CONF] = torch.where(alive, rows[:, sm.CONF], 0.0)
+    order = torch.argsort((~alive).to(torch.int8), stable=True)
+    return rows[order], alive.sum()
+
+
+def merge_maps(
+    data_b: torch.Tensor,
+    count_b: torch.Tensor,
+    data_a: torch.Tensor,
+    count_a: torch.Tensor,
+    T_ab: torch.Tensor,  # map-A world -> map-B world
+):
+    """Absorb map A into map B (reference `GlobalModel::consume`): A's live
+    surfels, transformed by `T_ab`, are appended after B's count while B
+    keeps one row of headroom; the rest are dropped and counted.  No re-sort:
+    the deformation graph sorts its sampled nodes by time, and the caller's
+    next compaction restores the [inactive..., active...] partition.
+
+    Writes `data_b` in place.  Returns (data_b, count, dropped) with
+    `dropped` a host int: one host read (the counts)."""
+    Nb = data_b.shape[0] - 1
+    rows_a, n_alive = _transform_rows(data_a, count_a, T_ab)
+    cb, n_alive = torch.stack([count_b.to(torch.int64), n_alive]).tolist()
+    n_take = min(n_alive, max(Nb - cb - 1, 0), rows_a.shape[0])
+    data_b[cb : cb + n_take] = rows_a[:n_take]
+    count = torch.full((), min(cb + n_take, Nb), dtype=torch.int64, device=data_b.device)
+    return data_b, count, n_alive - n_take
+
+
+def consume_ferns(db_b: fernmod.FernDB, db_a: fernmod.FernDB, T_ab: torch.Tensor) -> fernmod.FernDB:
+    """Absorb map A's fern keyframes into B's DB, poses moved by `T_ab`
+    (reference `Ferns::consume`); keyframes past B's capacity are dropped.
+    Writes B's tensors in place; one host read (the counts)."""
+    K = db_b.codes.shape[0]
+    cb, ca = torch.stack([db_b.count, db_a.count]).tolist()
+    n = min(ca, K - cb)
+    for arr_b, arr_a in (
+        (db_b.codes, db_a.codes), (db_b.intensity, db_a.intensity),
+        (db_b.depth, db_a.depth), (db_b.times, db_a.times),
+    ):
+        arr_b[cb : cb + n] = arr_a[:n]
+    db_b.poses[cb : cb + n] = torch.einsum("ij,kjl->kil", T_ab, db_a.poses[:n])
+    return db_b._replace(count=db_b.count + n)
+
+
+def resolve_intermap(
+    frame_pyr: odometry.FramePyramid,
+    fern_code: torch.Tensor,
+    other_db: fernmod.FernDB,
+    other_map_data: torch.Tensor,
+    other_map_count: torch.Tensor,
+    camera: CameraConfig,
+    cfg: EngineConfig,
+    dissim_thresh: float = 0.45,
+):
+    """Try to localise the current frame inside ANOTHER map (reference
+    `resolveRelativeTransformationFern`): fern retrieval in the other map,
+    then `verify_recovery` against its model at the retrieved pose.
+
+    Returns (pose in the other map [4,4] numpy or None, ok, info dict)."""
+    idx, dis = fernmod.best_match(other_db, fern_code)
+    info = {"dissim": float(dis)}
+    if info["dissim"] > dissim_thresh:
+        return None, False, info
+    return verify_recovery(
+        frame_pyr, other_db.poses.index_select(0, idx.reshape(1))[0], other_map_data,
+        other_map_count, camera, cfg, info,
+    )

@@ -59,6 +59,18 @@ def last_seen_any(data: torch.Tensor) -> torch.Tensor:
     return torch.amax(data[:, LAST_SEEN], dim=-1)
 
 
+def append_surfels(m: SurfelMap, attrs: torch.Tensor, valid: torch.Tensor) -> SurfelMap:
+    """Append the `valid` rows of `attrs` [K, 16] after `count`, in order;
+    invalid rows and rows past capacity land in the dump slot (row N).
+    Writes `m.data` in place; returns the map with its new count."""
+    cap = m.capacity
+    dest = m.count + torch.cumsum(valid.to(torch.int64), 0) - 1
+    dest = torch.where(valid & (dest < cap), dest, cap)
+    m.data[dest] = attrs
+    count = torch.clamp(m.count + valid.sum(), max=cap)
+    return SurfelMap(data=m.data, count=count)
+
+
 def compact(m: SurfelMap, time: float, time_delta: int, max_active: int = 0) -> SurfelMap:
     """Move live surfels to the front with a STABLE sort (temporal order is
     kept), partitioned [inactive..., active...] (active = last seen within

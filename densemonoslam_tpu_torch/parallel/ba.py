@@ -1,5 +1,6 @@
-"""Pose-graph optimisation and Schur-complement bundle adjustment on one
-device (port of the single-device half of `densemonoslam_tpu.parallel.ba`).
+"""Pose-graph optimisation and Schur-complement bundle adjustment, on one
+device or split over the ranks of a mesh's `cam` group (port of
+`densemonoslam_tpu.parallel.ba`).
 
 - **Pose graph** (`optimise_pose_graph`): keyframe poses + relative SE(3)
   edges (odometry + loop closures).  Gauss-Newton with conjugate gradient
@@ -22,6 +23,12 @@ Every per-point and per-camera sum is a product with a one-hot incidence
 matrix, never a scatter-add: float atomics would make two runs on the card
 differ in their last bits.  Inverses and solves use the `_ex` forms, which
 do not read the device to check for errors.
+
+The distributed forms (`make_distributed_pgo`, `make_distributed_ba`) run
+the same solves over the edges or points one rank holds, with each product,
+system and error all-reduced over the group; the all-reduce sums the
+ranks' partials in another order than one device's sum, so the two agree to
+f32 rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
 from densemonoslam_tpu_torch.mapping import deformation as dg
+from densemonoslam_tpu_torch.parallel import mesh as meshmod
 from densemonoslam_tpu_torch.utils import se3
 
 PGO_DAMPING = 1e-6
@@ -62,10 +70,16 @@ def _edge_residuals(xi: torch.Tensor, poses: torch.Tensor, edges: PoseGraphEdges
     return torch.cat([(r * edges.weight[:, None]).reshape(-1), anchor])
 
 
-def _pgo_normal_products(poses: torch.Tensor, edges: PoseGraphEdges):
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _pgo_normal_products(poses: torch.Tensor, edges: PoseGraphEdges, reduce=_same):
     """(v -> (JtJ + PGO_DAMPING I) v, J^T r) at xi = 0, v flat [K*6]: the
     per-edge Jacobian blocks (wrt the source and target perturbations) from
-    six reverse passes over per-edge copies of the two perturbations."""
+    six reverse passes over per-edge copies of the two perturbations.
+    `reduce` sums the edges' share of each product over the ranks that hold
+    the other edges (identity on one device)."""
     K, E = poses.shape[0], edges.i.shape[0]
     dev = poses.device
     Zinv = se3.se3_inverse(edges.Z)
@@ -88,10 +102,10 @@ def _pgo_normal_products(poses: torch.Tensor, edges: PoseGraphEdges):
     def JtJv(v: torch.Tensor) -> torch.Tensor:
         v = v.reshape(K, 6)
         Jv = torch.einsum("erc,ec->er", Ji, v[edges.i]) + torch.einsum("erc,ec->er", Jj, v[edges.j])
-        out = Hi @ torch.einsum("erc,er->ec", Ji, Jv) + Hj @ torch.einsum("erc,er->ec", Jj, Jv)
+        out = reduce(Hi @ torch.einsum("erc,er->ec", Ji, Jv) + Hj @ torch.einsum("erc,er->ec", Jj, Jv))
         return (out + anchor * v + PGO_DAMPING * v).reshape(-1)
 
-    g = Hi @ torch.einsum("erc,er->ec", Ji, r) + Hj @ torch.einsum("erc,er->ec", Jj, r)
+    g = reduce(Hi @ torch.einsum("erc,er->ec", Ji, r) + Hj @ torch.einsum("erc,er->ec", Jj, r))
     return JtJv, g.reshape(-1)
 
 
@@ -103,16 +117,22 @@ def optimise_pose_graph(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pose-graph GN on the poses' device.  Each step is taken only if it
     lowers the error.  Returns (poses, final_error); no host reads."""
+    return _pgo(poses, edges, iters, cg_iters, _same)
+
+
+def _pgo(poses, edges: PoseGraphEdges, iters: int, cg_iters: int, reduce):
+    """`optimise_pose_graph` over the edges this device holds; `reduce` sums
+    each product and error over the devices that hold the others."""
     K = poses.shape[0]
     xi0 = torch.zeros((K, 6), dtype=torch.float32, device=poses.device)
 
     def err(p: torch.Tensor) -> torch.Tensor:
-        return torch.sum(torch.square(_edge_residuals(xi0, p, edges)))
+        return reduce(torch.sum(torch.square(_edge_residuals(xi0, p, edges))))
 
     with torch.no_grad():
         e = err(poses)
         for _ in range(iters):
-            JtJv, g = _pgo_normal_products(poses, edges)
+            JtJv, g = _pgo_normal_products(poses, edges, reduce)
             dx = dg._cg(JtJv, -g, cg_iters)
             cand = _apply_xi(poses, dx.reshape(K, 6))
             e_new = err(cand)
@@ -234,6 +254,13 @@ def bundle_adjust(
     `huber` > 0 applies a Huber IRLS weight (px) per observation;
     `pregate_px` > 0 invalidates observations whose error at the initial
     estimate exceeds the gate."""
+    return _ba(problem, intr, iters, damping, fix_cameras, huber, pregate_px, _same)
+
+
+def _ba(problem: BAProblem, intr, iters, damping, fix_cameras, huber, pregate_px, reduce):
+    """`bundle_adjust` over the points (and all their observations) this
+    device holds; `reduce` sums the Schur system and the error over the
+    devices that hold the other points."""
     K = problem.poses.shape[0]
     Pn = problem.points.shape[0]
     dev = problem.poses.device
@@ -256,7 +283,9 @@ def bundle_adjust(
         S, b, Vinv, b_p, G = _schur_reduce(
             r, Jc, Jp, problem.cam_idx, problem.pnt_idx, K, Pn, damping
         )
-        S = S + damping * eye + torch.diag(pin)
+        Sb = reduce(torch.cat([S.reshape(-1), b]))  # one reduction for both
+        S = Sb[: K * 6 * K * 6].reshape(K * 6, K * 6) + damping * eye + torch.diag(pin)
+        b = Sb[K * 6 * K * 6 :]
         dx = torch.linalg.solve_ex(S, -b)[0].reshape(K, 6)
         poses_n = _apply_xi(poses, dx)
         # back-substitute the landmarks: dX = -Vinv (b_p + G^T dx)
@@ -267,6 +296,110 @@ def bundle_adjust(
         poses, points, problem.cam_idx, problem.pnt_idx, problem.uv, problem.valid, intr,
         z_obs=problem.z,
     )
-    n = torch.clamp(problem.valid.sum(), min=1)
-    err = torch.sum(torch.linalg.norm(r, dim=-1)) / n
-    return problem._replace(poses=poses, points=points), err
+    err, n = reduce(torch.stack(
+        [torch.sum(torch.linalg.norm(r, dim=-1)), problem.valid.sum().to(torch.float32)]
+    ))
+    return problem._replace(poses=poses, points=points), err / torch.clamp(n, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Distributed solves over a mesh's `cam` group (one `torch.distributed` rank
+# per shard).  Every rank passes the same full inputs and solves its shard;
+# the partial systems are all-reduced, so every rank holds the same poses.
+# ---------------------------------------------------------------------------
+
+
+def _shard(x: torch.Tensor, mesh: meshmod.Mesh) -> torch.Tensor:
+    """This rank's contiguous block of `x`'s rows (of `mesh.n_cams`)."""
+    n = x.shape[0] // mesh.n_cams
+    return x[mesh.cam * n : (mesh.cam + 1) * n]
+
+
+def make_distributed_pgo(mesh: meshmod.Mesh, iters: int = PGO_GN_ITERS, cg_iters: int = PGO_CG_ITERS):
+    """Edge-sharded pose-graph GN: poses replicated, edges split over the
+    `cam` group (E must divide by its size), every product and error
+    all-reduced: `cg_iters` + 1 all-reduces per GN step, and one per error.
+
+    Returns `run(poses, edges) -> (poses, final_error)`."""
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        return meshmod.all_reduce_sum(x, mesh.cam_group)
+
+    def run(poses: torch.Tensor, edges: PoseGraphEdges):
+        E = edges.i.shape[0]
+        if E % mesh.n_cams:
+            raise ValueError(f"{E} edges do not split over {mesh.n_cams} ranks: pad them")
+        local = PoseGraphEdges(*(_shard(x, mesh) for x in edges))
+        return _pgo(poses, local, iters, cg_iters, reduce)
+
+    return run
+
+
+def make_distributed_ba(
+    mesh: meshmod.Mesh, intr: CameraIntrinsics, iters: int = 5, damping: float = 1e-4,
+    fix_cameras: int = 1, huber: float = 0.0, pregate_px: float = 0.0,
+):
+    """Landmark-sharded Schur BA over the `cam` group: each rank owns a
+    block of points and all their observations (lay them out with
+    `shard_ba_problem`), forms its partial (S, b), and the all-reduced
+    camera system is solved on every rank; points back-substitute locally.
+
+    Returns `run(poses, points, cam_idx, pnt_idx_local, uv, valid, z) ->
+    (poses, points, mean residual)` on the full shard-major arrays, as
+    `shard_ba_problem` lays them out (the points come back gathered)."""
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        return meshmod.all_reduce_sum(x, mesh.cam_group)
+
+    def run(poses, points, cam_idx, pnt_idx_local, uv, valid, z):
+        local = BAProblem(
+            poses=poses, points=_shard(points, mesh), cam_idx=_shard(cam_idx, mesh),
+            pnt_idx=_shard(pnt_idx_local, mesh), uv=_shard(uv, mesh),
+            valid=_shard(valid, mesh), z=_shard(z, mesh),
+        )
+        out, err = _ba(local, intr, iters, damping, fix_cameras, huber, pregate_px, reduce)
+        pts = meshmod.all_gather(out.points, mesh.cam_group).reshape(-1, 3)
+        return out.poses, pts, err
+
+    return run
+
+
+def shard_ba_problem(problem: BAProblem, n_shards: int, obs_align: int = 256):
+    """Host-side layout for `make_distributed_ba` (numpy in, numpy out):
+    observations sorted by point id, the points padded to a multiple of
+    `n_shards`, each shard an equal slab of observations of exactly its
+    point block (local point indices), padded to a common count rounded up
+    to `obs_align`.
+
+    Returns (points [P', 3], cam_idx, pnt_idx_local, uv, valid, z), each
+    flattened shard-major."""
+    import numpy as np
+
+    points_in = np.asarray(problem.points, np.float32)
+    Pn = points_in.shape[0]
+    per = -(-Pn // n_shards)
+    points = np.zeros((per * n_shards, 3), np.float32)
+    points[:Pn] = points_in
+    pnt = np.asarray(problem.pnt_idx)
+    order = np.argsort(pnt, kind="stable")
+    cam_s, pnt_s = np.asarray(problem.cam_idx)[order], pnt[order]
+    uv_s, val_s = np.asarray(problem.uv)[order], np.asarray(problem.valid)[order]
+    z_all = np.zeros(order.shape[0], np.float32) if problem.z is None else np.asarray(problem.z)
+    z_s = z_all[order]
+    sels = [(pnt_s >= s * per) & (pnt_s < (s + 1) * per) & val_s for s in range(n_shards)]
+    o_max = max(max(int(sel.sum()) for sel in sels), 1)
+    o_max = -(-o_max // obs_align) * obs_align
+    cam_pad = np.zeros((n_shards, o_max), np.int64)
+    pnt_pad = np.zeros((n_shards, o_max), np.int64)
+    uv_pad = np.zeros((n_shards, o_max, 2), np.float32)
+    val_pad = np.zeros((n_shards, o_max), bool)
+    z_pad = np.zeros((n_shards, o_max), np.float32)
+    for s, sel in enumerate(sels):
+        n = int(sel.sum())
+        cam_pad[s, :n] = cam_s[sel]
+        pnt_pad[s, :n] = pnt_s[sel] - s * per
+        uv_pad[s, :n] = uv_s[sel]
+        val_pad[s, :n] = True
+        z_pad[s, :n] = z_s[sel]
+    return (
+        points, cam_pad.reshape(-1), pnt_pad.reshape(-1), uv_pad.reshape(-1, 2),
+        val_pad.reshape(-1), z_pad.reshape(-1),
+    )

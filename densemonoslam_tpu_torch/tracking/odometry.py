@@ -26,6 +26,7 @@ from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, warp
 from densemonoslam_tpu_torch.utils import se3
 
 ITERATIONS_DEFAULT = (4, 5, 10)
+ITERATIONS_INTERMAP = (50, 50, 50)  # inter-map verification at a reduced size
 SO3_ITERATIONS = 10
 TRANSLATION_FAILURE_THRESH = 0.3  # metres
 # intensity residuals are [0,255] units, ICP residuals metres
@@ -89,7 +90,17 @@ def build_frame_pyramid(
     rgb: torch.Tensor, depth_metric: torch.Tensor, intr: CameraIntrinsics, levels: int = 3
 ) -> FramePyramid:
     """rgb u8/f32 [H,W,3] + metric depth [H,W] -> FramePyramid."""
-    intensity = preprocess.build_pyramid(preprocess.rgb_to_intensity(rgb), levels, depth=False)
+    return frame_pyramid_from_depth_intensity(
+        preprocess.rgb_to_intensity(rgb), depth_metric, intr, levels
+    )
+
+
+def frame_pyramid_from_depth_intensity(
+    intensity: torch.Tensor, depth_metric: torch.Tensor, intr: CameraIntrinsics, levels: int = 3
+) -> FramePyramid:
+    """Like `build_frame_pyramid`, from an intensity image already computed
+    (decimated views for inter-map verification)."""
+    intensity = preprocess.build_pyramid(intensity, levels, depth=False)
     depths = preprocess.build_pyramid(depth_metric, levels, depth=True)
     vmaps, nmaps, gxs, gys = [], [], [], []
     for lv in range(levels):
@@ -292,9 +303,15 @@ def _gn_level(
     carry = (A0, (inf, zero, inf, zero, torch.eye(6, device=dev)),
              torch.full((), iterations == 0, dtype=torch.bool, device=dev))
     if iterations > 12:
-        raise NotImplementedError(
-            "GN budgets above 12 iterations (the inter-map while-loop path) are not ported"
-        )
+        # large budgets (inter-map verification, `ITERATIONS_INTERMAP`):
+        # exact re-association until a step converges (the reference's
+        # while-loop); the frozen carry makes more iterations change
+        # nothing, so `done` is read every 10 iterations to stop early
+        for start in range(0, iterations, 10):
+            carry = _exact_iters(lvl, carry, min(10, iterations - start))
+            if bool(carry[2]):
+                break
+        return carry[0], carry[1], None
     pending = None
     if nearest_finest:
         ex = min(exact_iters, iterations)
@@ -330,7 +347,8 @@ def track(
     """Full multi-level tracking; returns A with ``T_curr = T_model_view @ A``.
 
     Reads the device once (the levels' starvation flags), plus once more on
-    a frame where a level starved."""
+    a frame where a level starved; a level with more than 12 iterations
+    reads its convergence flag every 10 iterations."""
     levels = len(frame.intensity)
     A = A_init
     if use_so3 and levels > 1:

@@ -405,6 +405,16 @@ def _upload(device: torch.device, *arrays: np.ndarray) -> list:
     return out
 
 
+def edge_capacity(n_edges: int, n_shards: int = 1) -> int:
+    """The pose graph's padded edge count: the power of two (>= 8) that
+    holds `n_edges`, rounded up to a multiple of `n_shards`, which need
+    not be a power of two (ROADMAP R3)."""
+    cap = 8
+    while cap < n_edges:
+        cap *= 2
+    return -(-cap // n_shards) * n_shards
+
+
 class SparseTracker:
     """Host-side tracker state machine (the `ORB_SLAM3::System` role for
     the hybrid path): per-frame pose from motion-only GN against the previous
@@ -414,7 +424,12 @@ class SparseTracker:
 
     Per-frame work is pure device dispatch; host decisions happen in
     `flush()` every `flush_interval` frames with one batched read.  Runs on
-    the card unless `device` says otherwise."""
+    the card unless `device` says otherwise.
+
+    With `mesh` (a `parallel.mesh.Mesh`) local BA and PGO are split over
+    its `cam` group (`ba.make_distributed_ba` / `make_distributed_pgo`):
+    each solve is a collective, so every rank of the group drives its
+    tracker with the same frames."""
 
     def __init__(
         self,
@@ -431,9 +446,9 @@ class SparseTracker:
         mesh=None,
         device: torch.device | str = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("the mesh-sharded BA and PGO are not ported yet")
         self.intr = intr
+        self.mesh = mesh
+        self._dist_ba = self._dist_pgo = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -683,6 +698,13 @@ class SparseTracker:
             z_obs[o : o + n] = deps[i][sel]
             valid[o : o + n] = True
             o += n
+        if self.mesh is not None:
+            # landmark-sharded over the mesh's `cam` group: shard by that
+            # group's size, not the whole mesh's (ROADMAP R2)
+            points, cam_idx, pnt_idx, uv_obs, valid, z_obs = ba.shard_ba_problem(
+                ba.BAProblem(poses, points, cam_idx, pnt_idx, uv_obs, valid, z_obs),
+                self.mesh.n_cams,
+            )
         poses_d, points_d, cam_d, pnt_d, uv_d, valid_d, z_d = _upload(
             self.device, poses, points, cam_idx, pnt_idx, uv_obs, valid, z_obs
         )
@@ -691,12 +713,14 @@ class SparseTracker:
             pnt_idx=pnt_d.to(torch.int64), uv=uv_d, valid=valid_d > 0.5, z=z_d,
         )
         # the >8 px outlier pregate runs inside the solve (no extra read)
-        refined, _err = ba.bundle_adjust(
-            problem, self.intr, iters=4, fix_cameras=1, damping=1e-2, huber=3.0, pregate_px=8.0,
-        )
-        self._async.append(
-            ("ba_apply", dict(base=base, W=W, poses_in=poses, out=refined.poses))
-        )
+        opts = dict(iters=4, fix_cameras=1, damping=1e-2, huber=3.0, pregate_px=8.0)
+        if self.mesh is not None:
+            if self._dist_ba is None:
+                self._dist_ba = ba.make_distributed_ba(self.mesh, self.intr, **opts)
+            out_poses, _pts, _err = self._dist_ba(*problem)
+        else:
+            out_poses = ba.bundle_adjust(problem, self.intr, **opts)[0].poses
+        self._async.append(("ba_apply", dict(base=base, W=W, poses_in=poses, out=out_poses)))
 
     def _adv_ba_apply(self, p) -> None:
         """Stage 3: read the refined window poses (solve queued a flush ago)
@@ -827,9 +851,7 @@ class SparseTracker:
         Kcap = 8
         while Kcap < K:
             Kcap *= 2
-        Ecap = 8
-        while Ecap < len(self._edges):
-            Ecap *= 2
+        Ecap = edge_capacity(len(self._edges), 1 if self.mesh is None else self.mesh.n_cams)
         poses_p = np.tile(np.eye(4, dtype=np.float32), (Kcap, 1, 1))
         poses_p[:K] = poses
         ei = np.zeros((Ecap,), np.int64)
@@ -842,7 +864,12 @@ class SparseTracker:
         edges = ba.PoseGraphEdges(
             i=ei_d.to(torch.int64), j=ej_d.to(torch.int64), Z=Z_d, weight=w_d
         )
-        out, _err = ba.optimise_pose_graph(poses_d, edges, cg_iters=128)
+        if self.mesh is not None:
+            if self._dist_pgo is None:
+                self._dist_pgo = ba.make_distributed_pgo(self.mesh, cg_iters=128)
+            out, _err = self._dist_pgo(poses_d, edges)
+        else:
+            out, _err = ba.optimise_pose_graph(poses_d, edges, cg_iters=128)
         out = out.cpu().numpy()
         # the per-keyframe corrections (from the ORIGINAL poses), so the
         # engine can rewrite its dense trajectory to the optimum

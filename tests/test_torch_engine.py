@@ -103,10 +103,13 @@ def test_engine_unported_modes_raise(seq, override):
 
 
 def test_engine_second_frontend_and_missing_depth_raise(seq):
+    """A second frontend is a camera of its own, in a map of its own (the
+    multi-camera path, `tests/test_torch_intermap.py`); RGB without depth
+    and without a depth predictor raises."""
     eng = Engine(seq.camera, EngineConfig(**BASE), device="cpu")
     eng.frontend("cam0")
-    with pytest.raises(NotImplementedError):
-        eng.frontend("cam1")
+    fe1 = eng.frontend("cam1")
+    assert fe1.sensor_id == 1 and fe1.map_name == "cam1" and eng.maps["cam1"].contexts == ["cam1"]
     rgb, _ = seq.frame(0)
     with pytest.raises(ValueError):  # RGB only, and no depth predictor attached
         eng.process_frame("cam0", rgb, None, 0.0)

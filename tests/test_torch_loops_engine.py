@@ -111,6 +111,6 @@ def test_closure_keeps_active_set_inside_window():
                       in_pose=seq.gt_pose(i_closed).astype(np.float32))
     added = int(fe.state.map_count) - count_before
     assert added < 0.15 * 19200, f"re-fusing the reactivated view inserted {added} surfels"
-    eng._compact_now(fe, eng.backend_of("cam0"))
+    eng._compact_now(eng.backend_of("cam0"))
     n_active, overflow = _active_overflow(fe.state, eng.global_tick, cfg.time_delta, window)
     assert overflow == 0, (n_active, overflow)
