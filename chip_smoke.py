@@ -16,7 +16,7 @@ Phases (any failure raises, so the exit code is not 0):
    headline configuration (1<<20-surfel map, 4 pyramid levels, row stride 2,
    NID keyframing, open loop): 4 warm-up + 30 timed frames, with tracking,
    ATE, map size and kernel-launch checks.  Then compactions of the map;
-3. where the time goes: 8 more frames under `torch.profiler`, with the
+3. where the time goes: 4 more frames under `torch.profiler`, with the
    device-busy share, device operations per frame and the top operations;
 4. kernel K2 (whole-map deformation) against its plain version on a
    1<<20-row map and a 512-node graph: error, untouched bytes, passthrough,
@@ -38,8 +38,8 @@ Phases (any failure raises, so the exit code is not 0):
    frames, rendered on the host by a pool that runs during legs 1-7), the
    packaged street depth net, ORB tracking with local BA, hybrid loops, a
    1<<22-surfel map; the frames stay in host memory and each is uploaded
-   by `process_frame`, as in the bench; the lap's first 320 frames: 62
-   warm-up frames, 8 under `torch.profiler` (device-busy ms and the depth
+   by `process_frame`, as in the bench; the lap's first 320 frames: 66
+   warm-up frames, 4 under `torch.profiler` (device-busy ms and the depth
    CNN / sparse tracker / dense step ranges), then frames 70-319 timed with
    host syncs counted: fps, ATE, loops, surfels, launches; then K2 against
    its plain version on the leg's full map with a graph sampled from it;
@@ -63,7 +63,16 @@ Phases (any failure raises, so the exit code is not 0):
    consume), the full pipeline with every camera closing a loop,
    distributed PGO/BA against one device and the sharded K2 apply against
    one rank's K2, bit for bit; the ranks' launches are summed;
-13. K1 at the other shapes the legs launched it at, and per shape its
+13. the application layer, as a user starts it, at 640x480: the host's
+   codecs probed (PIL, the native codec library built from
+   `native/framecodec.cpp`), then `cli.main` in this process on two `.klg`
+   logs of the synthetic orbit (one camera, then two, each checked for its
+   exports and ATE against the orbit's truth), the single-camera `main()`
+   path with its four exports, checkpoint/resume on the card against the
+   run-to-run difference (and a checkpoint the CPU wrote, loaded on the
+   card), a 30 Hz live UDP stream into `cli.main --live-port` (frames sent,
+   received, processed), and a `ViewerServer` on the two-camera engine;
+14. K1 at the other shapes the legs launched it at, and per shape its
    launches over the legs times (device time - bound).
 
 Each leg sets every launch count to 0 just before it and reads the counts
@@ -83,7 +92,9 @@ import ctypes
 import json
 import multiprocessing
 import os
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -129,7 +140,10 @@ LAP, CL_WARMUP, CL_TIMED = 40, 45, 60
 # CLOSED, lap 40): the yardstick printed beside the port's numbers
 JAX_CLOSED = dict(ate_mm=115.06, loops_timed=4, loops_all=5, surfels=1048575, ferns=5)
 # the JAX bench's monocular street leg (bench.py:119-209)
-STREET_FRAMES, STREET_WARMUP, STREET_PROFILED = 520, 70, 8
+# 4 frames profiled (8 until the app leg came): reading a profile of ~14,000
+# device operations a frame takes the host ~10 s a frame, and the smoke must
+# stay inside its time limit
+STREET_FRAMES, STREET_WARMUP, STREET_PROFILED = 520, 70, 4
 # the mono leg drives the lap's first 320 frames (250 timed): the whole
 # smoke must finish well inside its time limit on the slowest hosts seen,
 # and the multi-camera legs took the time of 200 more mono frames
@@ -457,7 +471,7 @@ def phase_profile(eng, frames) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     n = len(frames)
-    frames_n = 8
+    frames_n = 4  # as STREET_PROFILED
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1698,6 +1712,389 @@ def check_collab(solo: dict, ranks: list) -> dict:
     return dict(launches=launches, shapes=shapes, fps_1=solo["fps"], fps_2=ranks[0]["fps"])
 
 
+# the app leg: the port's entry points as a user starts them, at 640x480.
+# Logs of the two-camera leg's orbit (camB's frames start 6 orbit frames
+# ahead), rendered with the CLI's own camera (`CameraConfig.tum_default`)
+APP_FRAMES = 30  # frames per log and of the single-camera run
+APP_CKPT = 16  # the checkpoint check's frames (a checkpoint at half of them)
+APP_LIVE, APP_LIVE_HZ = 30, 30.0
+APP_ATE_MM = 20.0  # tests/test_checkpoint_cli.py:85
+APP_CLI = ["--width", "640", "--height", "480", "--depth-cutoff", "8",
+           "--max-surfels", str(1 << 20)]
+# tests/test_checkpoint_cli.py's configuration, for the checkpoint the CPU writes
+APP_CPU_CKPT = dict(max_surfels=1 << 17, depth_cutoff=8.0, depth_factor=1.0,
+                    nid_keyframing=False, open_loop=True)
+
+
+def _cli_call(fn, argv: list) -> tuple:
+    """Run `cli.main` or `cli.run` in this process; return (its result, its
+    standard output, host seconds), the output echoed to the log."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[app]   cli: {line}")
+    return out, buf.getvalue(), dt
+
+
+def _cli_number(text: str, before: str, after: str) -> float:
+    return float(text.split(before)[1].split(after)[0])
+
+
+def _traj_ate_mm(path: str, gt: list) -> float:
+    from densemonoslam_tpu_torch.io.datasets import load_freiburg_trajectory
+
+    _, poses = load_freiburg_trajectory(path)
+    if len(poses) != len(gt):
+        raise AssertionError(f"{path}: {len(poses)} poses, expected {len(gt)}")
+    return 1e3 * ate_rmse(list(poses), gt)
+
+
+def _write_tum_dir(root, seq, n: int) -> tuple:
+    """A TUM-layout directory (16-bit PNG depth at 5000 per metre, an
+    association file) and its ground-truth trajectory."""
+    from PIL import Image
+
+    from densemonoslam_tpu_torch.io.writers import save_freiburg
+
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    lines, stamps = [], []
+    for i in range(n):
+        rgb, depth = seq.frame(i)
+        Image.fromarray(rgb).save(os.path.join(root, "rgb", f"{i}.png"))
+        Image.fromarray((depth * 5000).astype(np.uint16)).save(
+            os.path.join(root, "depth", f"{i}.png"))
+        stamps.append(i / 30.0)
+        lines.append(f"{stamps[-1]:.6f} rgb/{i}.png {stamps[-1]:.6f} depth/{i}.png")
+    with open(os.path.join(root, "assoc.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    gt = os.path.join(root, "groundtruth.freiburg")
+    save_freiburg(gt, stamps, [seq.gt_pose(i) for i in range(n)])
+    return gt
+
+
+def _app_checkpoint(seq, frames: list) -> dict:
+    """Resume on the card at 640x480: 16 frames uninterrupted, twice (the
+    run-to-run bound), then 8 frames, `save_checkpoint`, `load_checkpoint`
+    into a fresh engine and 8 more; then a checkpoint the CPU port wrote,
+    loaded on the card."""
+    import tempfile
+
+    cfg = EngineConfig(**HEADLINE)
+    camera = seq.camera
+
+    def engine():
+        eng = Engine(camera, cfg)
+        eng.frontend("cam0").pose = seq.gt_pose(0).astype(np.float32)
+        return eng
+
+    def drive(eng, lo, hi):
+        for i in range(lo, hi):
+            eng.process_frame("cam0", *frames[i], float(i), sync=False)
+        torch.cuda.synchronize()
+
+    runs = []
+    for _ in range(2):
+        eng = engine()
+        drive(eng, 0, APP_CKPT)
+        runs.append(eng)
+    half = APP_CKPT // 2
+    eng_b = engine()
+    drive(eng_b, 0, half)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        eng_b.save_checkpoint("cam0", path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        eng_c = engine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng_c.load_checkpoint("cam0", path)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+    drive(eng_c, half, APP_CKPT)
+
+    def gap(e1, e2):
+        t1 = np.stack([p for _, p in e1.frontends["cam0"].trajectory])
+        t2 = np.stack([p for _, p in e2.frontends["cam0"].trajectory])
+        return float(np.abs(t1 - t2).max())
+
+    run_to_run, resumed = gap(runs[0], runs[1]), gap(runs[0], eng_c)
+    counts = [e.surfel_count("cam0") for e in (runs[0], runs[1], eng_c)]
+    bound = max(run_to_run, 1e-6)  # the CPU test's atol where the runs agree bit for bit
+    log(f"[app] checkpoint at 640x480: save {save_ms:.1f} ms ({size / 2**20:.1f} MiB), load "
+        f"{load_ms:.1f} ms; largest pose difference over {APP_CKPT} frames: resumed "
+        f"{resumed:.3e}, two uninterrupted runs {run_to_run:.3e} (bound {bound:.1e}); surfels "
+        f"{counts[0]} / {counts[1]} / resumed {counts[2]}")
+    if not resumed <= bound:
+        raise AssertionError(f"resumed run differs by {resumed} > {bound}")
+    if counts[2] != counts[0] or len(eng_c.frontends["cam0"].trajectory) != APP_CKPT:
+        raise AssertionError(f"resumed run: {counts[2]} surfels vs {counts[0]}")
+    del runs, eng_b, eng_c
+    torch.cuda.empty_cache()
+
+    # a checkpoint written by the port on the CPU, loaded on the card
+    small = SyntheticSequence(num_frames=24, radius=0.35, max_angle=0.3)
+    cpu = Engine(small.camera, EngineConfig(**APP_CPU_CKPT), device="cpu")
+    cpu.frontend("cam0").pose = small.gt_pose(0).astype(np.float32)
+    for i in range(4):
+        cpu.process_frame("cam0", *small.frame(i), float(i))
+    gpu = Engine(small.camera, EngineConfig(**APP_CPU_CKPT))
+    gpu.frontend("cam0")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cpu.npz")
+        cpu.save_checkpoint("cam0", path)
+        gpu.load_checkpoint("cam0", path)
+    want = stepmod.state_to_numpy(cpu.frontends["cam0"].state)
+    got = stepmod.state_to_numpy(gpu.frontends["cam0"].state)
+    if not (gpu.frontends["cam0"].state.map_data.is_cuda
+            and all(np.array_equal(got[k], want[k]) for k in want)):
+        raise AssertionError("the CPU-written checkpoint did not load bit for bit onto the card")
+    for i in range(4, 8):
+        cpu.process_frame("cam0", *small.frame(i), float(i))
+        info = gpu.process_frame("cam0", *small.frame(i), float(i))
+        if info["tracking_ok"] != 1.0:
+            raise AssertionError(f"frame {i} after the CPU checkpoint lost tracking")
+    dT = np.linalg.inv(cpu.frontends["cam0"].pose) @ gpu.frontends["cam0"].pose
+    cross = float(np.linalg.norm(dT[:3, 3]))
+    log(f"[app] a CPU-written checkpoint (160x120) loads bit for bit on the card; 4 more frames "
+        f"on each: pose {cross * 1e3:.4f} mm apart (bound 0.5 mm, tests/test_torch_cuda.py)")
+    if not (cross < 5e-4 and _rot_err(dT[:3, :3]) < 1e-3):
+        raise AssertionError(f"card and CPU part by {cross} m after the CPU checkpoint")
+    return dict(save_ms=save_ms, load_ms=load_ms, resumed=resumed, run_to_run=run_to_run)
+
+
+def _free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _app_live(cli, port: int, frames: list) -> dict:
+    """A sender thread paced at 30 Hz streams frames over loopback UDP to
+    `cli.main(["--live-port", ...])`; sent, received and processed counts."""
+    import threading
+
+    from densemonoslam_tpu_torch.io.stream import FrameSender
+
+    sent = []
+
+    def send():
+        time.sleep(3.0)  # the CLI binds its receiver first
+        tx = FrameSender("live0", port=port)
+        try:
+            t0 = time.perf_counter()
+            for k, (rgb, depth) in enumerate(frames):
+                tx.send(rgb, (depth * 1000).astype(np.uint16), timestamp=k,
+                        last=k == len(frames) - 1)
+                sent.append(k)
+                time.sleep(max(0.0, t0 + (k + 1) / APP_LIVE_HZ - time.perf_counter()))
+        finally:
+            tx.close()
+
+    th = threading.Thread(target=send, daemon=True)
+    th.start()
+    try:
+        _, text, dt = _cli_call(cli.main, ["--live-port", str(port), "--num-sensors", "1",
+                                           "--frames", str(len(frames)), *APP_CLI])
+    finally:
+        th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("the live sender did not finish")
+    processed = int(_cli_number(text, "processed ", " frames"))
+    received = int(_cli_number(text, "live frames received ", ","))
+    pushed = int(_cli_number(text, "pushed out of the full queue ", "\n"))
+    log(f"[app] live: frames sent {len(sent)}, received {received} (lost by UDP "
+        f"{len(sent) - received}), pushed out of the receiver's queue {pushed}, processed "
+        f"{processed}, in {dt:.1f} s")
+    if processed < 1 or processed + pushed != received:
+        raise AssertionError(f"live stream: {processed} processed, {received} received")
+    return dict(sent=len(sent), received=received, pushed=pushed, processed=processed)
+
+
+def _app_viewer(eng) -> dict:
+    """Serve the two-camera session's engine and fetch what the page polls."""
+    import urllib.request
+
+    from densemonoslam_tpu_torch.viewer import ViewerServer
+
+    srv = ViewerServer(eng, port=0)
+    port = srv.start()
+    base = f"http://127.0.0.1:{port}"
+    cams = list(eng.frontends)
+    try:
+        pub = []
+        for cam in cams:
+            t0 = time.perf_counter()
+            srv.publish(cam)
+            pub.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        srv.sync(cams)  # the first cloud refresh of every map
+        cloud_ms = 1e3 * (time.perf_counter() - t0)
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                return r.read()
+
+        st = json.loads(get("/api/status"))
+        n_png = 0
+        for cam in cams:
+            for kind in ("rgb", "depth", "normals"):
+                if get(f"/api/view/{cam}/{kind}.png")[:8] != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"view {cam}/{kind} is not a PNG")
+                n_png += 1
+        blobs = {}
+        for m in eng.maps:
+            blob = get(f"/api/cloud/{m}")
+            (n,) = struct.unpack_from("<I", blob, 0)
+            if n == 0 or len(blob) != 4 + 15 * n:
+                raise AssertionError(f"cloud of map {m}: {n} points in {len(blob)} bytes")
+            blobs[m] = n
+    finally:
+        srv.stop()
+    if sorted(st["cams"]) != sorted(cams) or not all(
+            be.map_data.is_cuda for be in eng.maps.values()):
+        raise AssertionError(f"viewer status {st['cams'].keys()} / maps off the card")
+    log(f"[app] viewer: status of {len(st['cams'])} cameras, {n_png} view PNGs, clouds "
+        f"{blobs} points; publish {', '.join(f'{x:.1f}' for x in pub)} ms per camera (host), "
+        f"one cloud refresh of {len(blobs)} map(s) {cloud_ms:.1f} ms (host; the gather on the "
+        f"card)")
+    return dict(publish_ms=pub, cloud_ms=cloud_ms)
+
+
+def phase_app() -> dict:
+    """The application layer on the card: the host probe, the CLI on `.klg`
+    logs (one camera, then two), the single-camera `main()` path with its
+    exports, checkpoint/resume, a live UDP stream and the viewer."""
+    import shutil
+    import tempfile
+
+    from densemonoslam_tpu_torch import cli
+    from densemonoslam_tpu_torch.io import native
+    from densemonoslam_tpu_torch.io.klg import write_klg
+
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    have_native, have_pf = native.HAVE_NATIVE, native.HAVE_PREFETCH
+    log(f"[app] host: PIL {pil or 'missing'}; native codec built and loaded: {have_native} "
+        f"(prefetcher {have_pf})" + ("" if have_native else f"; build failed: {native.BUILD_ERROR}"))
+    compress = have_native or pil is not None
+    log(f"[app] .klg logs written with compress={compress} "
+        + ("(zlib depth + JPEG RGB)" if compress else "(raw: no JPEG codec on this host)"))
+
+    camera = CameraConfig.tum_default("app")
+    seq = SyntheticSequence(camera=camera, num_frames=40, radius=0.35, max_angle=0.3)
+    n = APP_FRAMES
+    # one 640x480 frame takes the host ~0.4 s to render: a spawned pool
+    with multiprocessing.get_context("spawn").Pool(min(6, os.cpu_count() or 1)) as pool:
+        frames = pool.map(seq.frame, range(MULTI_OFFSET + n))
+    launches, shapes, fps = dict(gram=0, deform=0), {}, {}
+
+    def count(label):
+        launches["gram"] += gram.LAUNCHES
+        launches["deform"] += deform.LAUNCHES
+        for shape, k in gram.LAUNCHES_BY_SHAPE.items():
+            shapes[shape] = shapes.get(shape, 0) + k
+        log(f"[app] {label}: K1 {gram.LAUNCHES} launches, K2 {deform.LAUNCHES}")
+        if gram.LAUNCHES == 0:
+            raise AssertionError(f"{label}: no K1 launch, the run did not track on the card")
+
+    work = tempfile.mkdtemp(prefix="app_")
+    try:
+        logs = []
+        for name, start in (("a", 0), ("b", MULTI_OFFSET)):
+            logs.append(os.path.join(work, f"{name}.klg"))
+            write_klg(logs[-1], [(rgb, (depth * 1000).astype(np.uint16), i)
+                                 for i, (rgb, depth) in enumerate(frames[start:start + n])],
+                      compress=compress)
+        gts = [[seq.gt_pose(i) for i in range(start, start + n)] for start in (0, MULTI_OFFSET)]
+
+        # one camera from a log
+        out = os.path.join(work, "one")
+        reset_counts()
+        _, text, dt = _cli_call(cli.main, ["--logs", logs[0], "--frames", str(n), "--out", out,
+                                           *APP_CLI])
+        count("one log")
+        ate = _traj_ate_mm(os.path.join(out, "cam0.freiburg"), gts[0])
+        fps["one log"] = _cli_number(text, " cameras at ", " fps")
+        dispatch = _cli_number(text, "frame_dispatch mean ", " ms")
+        log(f"[app] one log: {n} frames, {fps['one log']:.2f} fps (CLI), frame_dispatch mean "
+            f"{dispatch:.2f} ms, ATE {ate:.3f} mm (bound {APP_ATE_MM} mm), {dt:.1f} s; exports "
+            f"{sorted(os.listdir(out))}")
+        if not (ate < APP_ATE_MM and os.path.exists(os.path.join(out, "cam0.ply"))):
+            raise AssertionError(f"one log: ATE {ate} mm or the exports are missing")
+
+        # two cameras from two logs; the engine stays for the viewer
+        out = os.path.join(work, "two")
+        reset_counts()
+        eng, text, dt = _cli_call(cli.run, ["--logs", *logs, "--frames", str(n), "--out", out,
+                                            *APP_CLI])
+        count("two logs")
+        if eng.device.type != "cuda":
+            raise AssertionError(f"the CLI ran on {eng.device}")
+        ates = [_traj_ate_mm(os.path.join(out, f"cam{k}.freiburg"), gts[k]) for k in (0, 1)]
+        plys = [f for f in os.listdir(out) if f.endswith(".ply")]
+        fps["two logs"] = _cli_number(text, " cameras at ", " fps")
+        log(f"[app] two logs: {2 * n} camera-frames, {fps['two logs']:.2f} camera-frames/s "
+            f"(CLI), frame_dispatch mean {eng.timer.mean('frame_dispatch'):.2f} ms, maps "
+            f"{ {m: eng.surfel_count(m) for m in eng.maps} }, ATE cam0 {ates[0]:.3f} mm, cam1 "
+            f"{ates[1]:.3f} mm, {dt:.1f} s; exports {sorted(os.listdir(out))}")
+        if not (max(ates) < APP_ATE_MM and len(plys) == len(eng.maps)):
+            raise AssertionError(f"two logs: ATE {ates} mm, {plys} for maps {list(eng.maps)}")
+        viewer = _app_viewer(eng)
+        del eng
+        torch.cuda.empty_cache()
+
+        # the single-camera main() path with its four exports
+        out = os.path.join(work, "main")
+        reset_counts()
+        if pil is not None:
+            gt = _write_tum_dir(os.path.join(work, "tum"), seq, n)
+            argv = ["--dataset", "tum", "--path", os.path.join(work, "tum"), "--gt", gt,
+                    "--frames", str(n), "--depth-cutoff", "8", "--max-surfels", str(1 << 20)]
+            which = f"a TUM-layout directory at 640x480, {n} frames"
+        else:
+            argv = ["--dataset", "synthetic", "--frames", str(n), "--max-surfels", str(1 << 20)]
+            which = f"--dataset synthetic (160x120: no PIL here for TUM PNGs), {n} frames"
+        _, text, dt = _cli_call(cli.main, [*argv, "--out", out])
+        count("main")
+        ate = float(text.split("ATE RMSE")[1].split(":")[1].split("mm")[0])
+        fps["main"] = _cli_number(text, " frames at ", " fps")
+        dispatch = _cli_number(text, "frame_dispatch mean ", " ms")
+        exports = sorted(os.listdir(out))
+        log(f"[app] main() on {which}: {fps['main']:.2f} fps (CLI), frame_dispatch mean "
+            f"{dispatch:.2f} ms, ATE {ate:.3f} mm, {dt:.1f} s; exports {exports}")
+        if exports != ["map.ply", "run.stats", "timings.csv", "trajectory.freiburg"]:
+            raise AssertionError(f"main(): exports {exports}")
+        if not ate < APP_ATE_MM:
+            raise AssertionError(f"main(): ATE {ate} mm")
+
+        reset_counts()
+        ckpt = _app_checkpoint(seq, frames)
+        count("checkpoint")
+
+        reset_counts()
+        live = _app_live(cli, _free_udp_port(), frames[:APP_LIVE])
+        count("live")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[app] K1 {launches['gram']} launches, K2 {launches['deform']} over the leg; K1 by "
+        f"(P, C): {dict(sorted(shapes.items(), reverse=True))}")
+    return dict(launches=launches, shapes=dict(sorted(shapes.items(), reverse=True)), fps=fps,
+                ckpt=ckpt, live=live, viewer=viewer)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -1757,10 +2154,14 @@ def run(street: StreetRender) -> int:
     lap("two cameras")
     collab = phase_collab()
     lap("collab session")
+    app = phase_app()
+    torch.cuda.empty_cache()
+    lap("app")
     # K1 at the shapes the legs launched it at that phase 1 did not cover,
     # then launches x (time - bound) per shape over the legs
     legs = {"open": slam["shapes"], "closed": closed["shapes"], "reloc": reloc["shapes"],
-            "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"]}
+            "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"],
+            "app": app["shapes"]}
     seen = sorted({shape for leg in legs.values() for shape in leg}, reverse=True)
     more = phase_gram([shape for shape in seen if shape not in k1["times"]])
     k1["times"].update(more["times"])
@@ -1785,7 +2186,8 @@ def run(street: StreetRender) -> int:
             "source": "densemonoslam_tpu_torch/csrc/gram.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
             "launches": slam["launches"] + closed["launches"]["gram"] + reloc["launches"]
-            + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"],
+            + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"]
+            + app["launches"]["gram"],
             "launches_per_call": g["launches_per_call"],
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
@@ -1801,7 +2203,8 @@ def run(street: StreetRender) -> int:
             "source": "densemonoslam_tpu_torch/csrc/deform.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/deform.py:201",
             "launches": closed["launches"]["deform"] + mono["launches"]["deform"]
-            + hybrid["launches"] + two["launches"]["deform"] + collab["launches"]["deform"],
+            + hybrid["launches"] + two["launches"]["deform"] + collab["launches"]["deform"]
+            + app["launches"]["deform"],
             "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
             "ms": k2_real["ms"],
             "prev_ms": k2_real["prev_ms"],

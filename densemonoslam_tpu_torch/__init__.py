@@ -10,9 +10,14 @@ Ported so far: the single-camera RGB-D path (`engine.Engine` ->
 `step.make_step`), open or closed loop (ferns, local loop closure through
 the deformation graph), with relocalisation, and the monocular hybrid stack
 (the depth CNN `models.depthnet`, the sparse tracker `tracking.sparse` with
-the BA and PGO solvers of `parallel.ba`, hybrid loops).  Both TPU kernels are
-hand-written CUDA kernels: the Gram reduction (`csrc/gram.cu`, wrapped by
-`ops.gram`) and the whole-map deformation (`csrc/deform.cu`, `ops.deform`).
+the BA and PGO solvers of `parallel.ba`, hybrid loops), several cameras in
+one engine and the `torch.distributed` collaborative session (`parallel`),
+and the application layer: the command line `python -m
+densemonoslam_tpu_torch.cli`, `.klg` / dataset / UDP input (`io`), camera
+managers, checkpoints (`utils.checkpoint`), the `Stopwatch` and the web
+viewer (`viewer`).  Both TPU kernels are hand-written CUDA kernels: the
+Gram reduction (`csrc/gram.cu`, wrapped by `ops.gram`) and the whole-map
+deformation (`csrc/deform.cu`, `ops.deform`).
 Entry points run on the card unless the caller asks for the CPU.
 """
 

@@ -45,10 +45,11 @@ from densemonoslam_tpu_torch.config import CameraConfig, EngineConfig
 from densemonoslam_tpu_torch.mapping import deformation as dg
 from densemonoslam_tpu_torch.mapping import ferns as fernmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
-from densemonoslam_tpu_torch.ops import preprocess
+from densemonoslam_tpu_torch.ops import preprocess, splat
 from densemonoslam_tpu_torch.tracking import odometry, registration
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 from densemonoslam_tpu_torch.utils.stats import SessionStats
+from densemonoslam_tpu_torch.utils.timer import Stopwatch
 
 _HIST_INITIAL_CAP = 1024
 
@@ -128,6 +129,10 @@ class Frontend:
             )
         self.stats.keyframes = int(arr[-1][stepmod.STAT_KEYFRAMES])
 
+    @property
+    def num_keyframes(self) -> int:
+        return int(self.state.kf_count)
+
 
 @dataclasses.dataclass
 class MapBackend:
@@ -171,13 +176,34 @@ class Engine:
         self.frontends: Dict[str, Frontend] = {}
         self.maps: Dict[str, MapBackend] = {}
         self.global_tick = 0
+        self.timer = Stopwatch()
         self._compact_interval = 64
+        self._step_cache: Dict[Tuple, object] = {}
         self._depth_predictor = None
 
     def set_depth_predictor(self, predictor) -> None:
         """Attach a monocular depth network (`models.depthnet.DepthPredictor`,
         used with `predict_depth=True`)."""
         self._depth_predictor = predictor
+
+    def _step_for(self, camera: CameraConfig, sensor_id: int):
+        """The step of a camera geometry, sensor and the current config, built
+        once per distinct key: a config swap back to an earlier value reuses
+        its step."""
+        res = camera.resolution
+        key = (camera.intrinsics, res.width, res.height, sensor_id, self.config)
+        if key not in self._step_cache:
+            self._step_cache[key] = stepmod.make_step(
+                camera.intrinsics, res.height, res.width, self.config, sensor_id
+            )
+        return self._step_cache[key]
+
+    def update_config(self, **kw) -> None:
+        """Live parameter change (the reference GUI's slider sync): every
+        frontend's step is re-derived through the step cache."""
+        self.config = self.config.replace(**kw)
+        for fe in self.frontends.values():
+            fe.step_fn = self._step_for(fe.camera, fe.sensor_id)
 
     def frontend(self, name: str, sensor_id: Optional[int] = None) -> Frontend:
         """Create a camera frontend in its own new map (reference
@@ -194,9 +220,7 @@ class Engine:
             state=stepmod.init_state(
                 self.config.max_surfels, res.height, res.width, device=self.device
             ),
-            step_fn=stepmod.make_step(
-                self.camera.intrinsics, res.height, res.width, self.config, sensor_id
-            ),
+            step_fn=self._step_for(self.camera, sensor_id),
             map_name=name,
         )
         self.frontends[name] = fe
@@ -288,6 +312,7 @@ class Engine:
         injection).  With `sync=False` the stats are only logged and an
         empty dict returns."""
         fe = self.frontends[name]
+        t0 = self.timer.tick("frame_dispatch")
         cfg = self.config
         dev = self.device
         rgb = torch.as_tensor(rgb, device=dev)
@@ -327,6 +352,7 @@ class Engine:
         fe.ts_log.append(timestamp)
         fe.stats_log.append(stats)
         fe.tick += 1
+        self.timer.tock("frame_dispatch", t0)
         if fe.tick % self._compact_interval == 0:
             # reclaims culled slots and re-partitions [inactive..., active...]
             self._compact_now(be)
@@ -574,6 +600,63 @@ class Engine:
             self._set_map(dst, m.data, m.count)
 
     # ------------------------------------------------------------- exports
+    def predict_view(self, name: str, mode: int = splat.MODE_ALL) -> splat.Prediction:
+        """Render camera `name`'s map at its current pose."""
+        fe = self.frontends[name]
+        res = fe.camera.resolution
+        m = self.map_of(fe.map_name)
+        return splat.render(
+            m.data, m.count, fe.state.pose, fe.camera.intrinsics, res.width, res.height,
+            time=float(fe.tick), time_delta=self.config.time_delta, mode=mode,
+        )
+
+    def view_images(self, name: str) -> Dict[str, np.ndarray]:
+        """The predicted view at camera `name`'s pose as uint8 images:
+        colour, depth scaled by its maximum, and normals mapped to 0..255."""
+        pred = self.predict_view(name)
+        depth = pred.depth
+        d_vis = depth / torch.clamp(depth.max(), min=1e-6) * 255.0
+        imgs = {
+            "rgb": torch.clamp(pred.color, 0, 255),
+            "depth": torch.clamp(d_vis, 0, 255),
+            "normals": (pred.nmap * 0.5 + 0.5) * 255,
+        }
+        return {k: v.to(torch.uint8).cpu().numpy() for k, v in imgs.items()}
+
+    def save_view_images(self, name: str, out_dir: str, prefix: str = "view") -> None:
+        """Write the predicted RGB / depth / normal images at the current pose
+        as `<prefix>_{rgb,depth,normals}.png` (the headless substitute for the
+        reference GUI's image dumps)."""
+        import os
+
+        from densemonoslam_tpu_torch.io.writers import png_bytes
+
+        os.makedirs(out_dir, exist_ok=True)
+        for kind, img in self.view_images(name).items():
+            with open(os.path.join(out_dir, f"{prefix}_{kind}.png"), "wb") as f:
+                f.write(png_bytes(img))
+
+    def save_times(self, path: str) -> None:
+        self.timer.write_csv(path)
+
+    def save_checkpoint(self, name: str, path: str) -> None:
+        from densemonoslam_tpu_torch.utils.checkpoint import save_frontend
+
+        fe = self.frontends[name]
+        be = self.backend_of(name)
+        fe.state = fe.state.replace(map_data=be.map_data, map_count=be.map_count)
+        save_frontend(path, fe)
+
+    def load_checkpoint(self, name: str, path: str) -> None:
+        """Restore camera `name` from a checkpoint (of either package); the
+        session tick moves up to the restored frontend's."""
+        from densemonoslam_tpu_torch.utils.checkpoint import load_frontend
+
+        fe = self.frontends[name]
+        load_frontend(path, fe)
+        self._set_map(self.backend_of(name), fe.state.map_data, fe.state.map_count)
+        self.global_tick = max(self.global_tick, fe.tick)
+
     def save_trajectory(self, name: str, path: str) -> None:
         from densemonoslam_tpu_torch.io.writers import save_freiburg
 

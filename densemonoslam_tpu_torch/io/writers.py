@@ -7,11 +7,14 @@ evaluation tooling can be pointed at either system:
 - map: `ElasticFusion::savePly` (`Core/src/ElasticFusion.cpp:781-890`) writes a
   binary-little-endian PLY with x y z nx ny nz red green blue radius
   per stable surfel.
+It also encodes the viewer's and `Engine.save_view_images`' PNG images with
+the standard library alone (`png_bytes`), so they need no imaging package.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 from typing import Sequence
 
 import numpy as np
@@ -117,3 +120,30 @@ def load_ply(path: str):
             count=n,
         )
     return rec["xyz"].copy(), rec["n"].copy(), rec["rgb"].copy(), rec["r"].copy()
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF
+    )
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit PNG of a uint8 image, greyscale [H,W] or RGB [H,W,3]: one
+    IDAT of zlib-deflated scanlines, each with filter type 0."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        color = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        color = 2
+    else:
+        raise ValueError(f"png_bytes takes [H,W] or [H,W,3] uint8, got shape {img.shape}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+        + _png_chunk(b"IEND", b"")
+    )

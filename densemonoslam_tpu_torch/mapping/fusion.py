@@ -10,6 +10,8 @@ surfel gathers its own centre cell once.  New surfels are appended at
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
@@ -26,6 +28,13 @@ RADIUS_OBLIQUE_CLAMP = 0.5
 RADIUS_FUSE_FACTOR = 1.5
 UNSTABLE_TTL = 20
 FREE_SPACE_MARGIN = 0.1
+
+
+class FuseStats(NamedTuple):
+    matched: torch.Tensor  # pixels fused into existing surfels
+    added: torch.Tensor  # new surfels created
+    culled: torch.Tensor  # surfels removed by the inline clean
+    dropped: torch.Tensor  # insertions discarded by the capacity headroom guard
 
 
 def sample_confidence(u, v, intr: CameraIntrinsics, weight_mult) -> torch.Tensor:
@@ -223,3 +232,120 @@ def place_updates(
     data[N].fill_(0.0)
     new_count = torch.minimum(count + n_new, torch.full_like(count, N))
     return data, new_count, n_new, n_want - n_new
+
+
+def _block(m: sm.SurfelMap, window: int):
+    """(start, rows) of the rows a windowed pass touches: the active tail
+    block when 0 < `window` < capacity, else every row but the dump row."""
+    N = m.capacity
+    if 0 < window < N:
+        start = splat.active_window_start(m.count, N, window)
+        return start, splat.window_rows(m.data, start, window)
+    return torch.zeros((), dtype=torch.int64, device=m.data.device), m.data[:-1]
+
+
+def fuse(
+    m: sm.SurfelMap,
+    vmap_c: torch.Tensor,  # [H,W,3] current frame camera-space vertices
+    nmap_c: torch.Tensor,  # [H,W,3]
+    rgb_c: torch.Tensor,  # [H,W,3] 0..255
+    pose: torch.Tensor,  # [4,4] camera-to-world
+    intr: CameraIntrinsics,
+    time,
+    sensor: int = 0,
+    weight_mult=1.0,
+    time_delta: int = 200,
+    splat_k: int = 3,
+    window: int = 0,
+    packed_zbuffer: bool = True,
+    cluster_id=0.0,
+) -> Tuple[sm.SurfelMap, FuseStats]:
+    """Fuse one RGB-D frame into the map at `pose`: the ACTIVE-mode
+    association render, then `fuse_with_pred`.  `m.data` is updated in
+    place (the reference donates it)."""
+    pred = splat.render(
+        m.data, m.count, pose, intr, vmap_c.shape[1], vmap_c.shape[0],
+        scalar(time, torch.float32, m.data.device), time_delta=time_delta,
+        mode=splat.MODE_ACTIVE, splat_k=splat_k, window=window,
+        packed_zbuffer=packed_zbuffer,
+    )
+    return fuse_with_pred(
+        m, pred, vmap_c, nmap_c, rgb_c, pose, intr, time, sensor=sensor,
+        weight_mult=weight_mult, splat_k=splat_k, window=window, cluster_id=cluster_id,
+    )
+
+
+def fuse_with_pred(
+    m: sm.SurfelMap,
+    pred: splat.Prediction,  # ACTIVE-mode prediction at `pose` (global indices)
+    vmap_c: torch.Tensor,
+    nmap_c: torch.Tensor,
+    rgb_c: torch.Tensor,
+    pose: torch.Tensor,
+    intr: CameraIntrinsics,
+    time,
+    sensor: int = 0,
+    weight_mult=1.0,
+    splat_k: int = 3,
+    window: int = 0,
+    clean_depth: torch.Tensor | None = None,
+    conf_threshold: float = 10.0,
+    unstable_ttl: int = UNSTABLE_TTL,
+    time_delta: int = 200,
+    cluster_id=0.0,
+) -> Tuple[sm.SurfelMap, FuseStats]:
+    """Fusion given an already-rendered association prediction: the window
+    block, `fuse_window`, then `place_updates` (which writes `m.data` in
+    place).  With `clean_depth` the outlier cull runs inline."""
+    start, rows = _block(m, window)
+    blk, packed, rank, n_want, matched, culled = fuse_window(
+        rows, start, m.count, pred, vmap_c, nmap_c, rgb_c, pose, intr, time,
+        sensor=sensor, weight_mult=weight_mult, splat_k=splat_k, clean_depth=clean_depth,
+        conf_threshold=conf_threshold, unstable_ttl=unstable_ttl, time_delta=time_delta,
+        cluster_id=cluster_id,
+    )
+    data, count, added, dropped = place_updates(
+        m.data, m.count, blk, start, packed, n_want, rank
+    )
+    return sm.SurfelMap(data=data, count=count), FuseStats(matched, added, culled, dropped)
+
+
+def clean(
+    m: sm.SurfelMap,
+    depth_frame: torch.Tensor,  # [H,W] metric depth of the current frame
+    pose: torch.Tensor,
+    intr: CameraIntrinsics,
+    time,
+    conf_threshold: float = 10.0,
+    unstable_ttl: int = UNSTABLE_TTL,
+    window: int = 0,
+    time_delta: int = 200,
+) -> Tuple[sm.SurfelMap, torch.Tensor]:
+    """Cull bad surfels (reference `copy_unstable.vert` outlier logic):
+    unstable surfels not refreshed within `unstable_ttl` ticks (inside the
+    active epoch), and free-space violators that project well in front of
+    the observed depth.  Culled rows get conf 0 in `m.data`, in place, and
+    are reclaimed by `surfel_map.compact`.  Returns (map, culled count)."""
+    H, W = depth_frame.shape
+    dev = m.data.device
+    t_now = scalar(time, torch.float32, dev)
+    start, rows = _block(m, window)
+    idx = start + torch.arange(rows.shape[0], device=dev)
+    alive = (rows[:, sm.CONF] > 0) & (idx < m.count)
+
+    p_c = se3.transform_points(se3.se3_inverse(pose), rows[:, sm.POS])
+    z = p_c[:, 2]
+    zsafe = torch.clamp(z, min=1e-6)
+    u = p_c[:, 0] / zsafe * intr.fx + intr.cx
+    v = p_c[:, 1] / zsafe * intr.fy + intr.cy
+    ui = torch.clamp(torch.round(u), 0, W - 1).long()
+    vi = torch.clamp(torch.round(v), 0, H - 1).long()
+    inb = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1) & (z > 0.05)
+    d_obs = depth_frame[vi, ui]
+    free_space = inb & (d_obs > 0) & (z < d_obs - FREE_SPACE_MARGIN)
+
+    age = t_now - sm.last_seen_any(rows)
+    stale = (rows[:, sm.CONF] < conf_threshold) & (age > unstable_ttl) & (age <= time_delta)
+    kill = alive & (stale | free_space)
+    m.data[idx, sm.CONF] = torch.where(kill, 0.0, rows[:, sm.CONF])
+    return sm.SurfelMap(data=m.data, count=m.count), kill.sum()

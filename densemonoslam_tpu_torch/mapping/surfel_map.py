@@ -47,11 +47,52 @@ class SurfelMap:
     def capacity(self) -> int:
         return self.data.shape[0] - 1
 
+    # --- column views (slices, no copy) -----------------------------------
+    @property
+    def positions(self) -> torch.Tensor:
+        return self.data[:-1, POS]
+
+    @property
+    def confidences(self) -> torch.Tensor:
+        return self.data[:-1, CONF]
+
+    @property
+    def colors(self) -> torch.Tensor:
+        return self.data[:-1, COLOR]
+
+    @property
+    def radii(self) -> torch.Tensor:
+        return self.data[:-1, RADIUS]
+
+    @property
+    def normals(self) -> torch.Tensor:
+        return self.data[:-1, NORMAL]
+
+    @property
+    def init_times(self) -> torch.Tensor:
+        return self.data[:-1, INIT_TIME]
+
+    @property
+    def last_seen(self) -> torch.Tensor:
+        return self.data[:-1, LAST_SEEN]
+
     @property
     def alive(self) -> torch.Tensor:
         """Boolean [N]: slot holds a live surfel."""
         idx = torch.arange(self.capacity, device=self.data.device)
         return (self.data[:-1, CONF] > 0) & (idx < self.count)
+
+    def num_alive(self) -> torch.Tensor:
+        return self.alive.sum()
+
+
+def empty_map(capacity: int, device: torch.device | str = "cuda") -> SurfelMap:
+    """A map of `capacity` free rows on `device` (the card unless the caller
+    says otherwise)."""
+    return SurfelMap(
+        data=torch.zeros((capacity + 1, COLS), dtype=torch.float32, device=device),
+        count=torch.zeros((), dtype=torch.int64, device=device),
+    )
 
 
 def last_seen_any(data: torch.Tensor) -> torch.Tensor:

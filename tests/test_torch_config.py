@@ -52,9 +52,10 @@ def test_camera_presets_match_reference(name):
 
 def test_port_never_imports_jax():
     """Importing every module of the port leaves jax and the JAX package out
-    of `sys.modules` (the port must run where jax is not installed)."""
+    of `sys.modules` (the port must run where jax is not installed), and has
+    no side effect: no thread (a server or a receiver), no native build."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, sys, threading\n"
         "import densemonoslam_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for name in mods:\n"
@@ -62,6 +63,9 @@ def test_port_never_imports_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'densemonoslam_tpu.')) or k == 'densemonoslam_tpu')\n"
         "print(len(mods))\n"
         "assert not bad, bad\n"
+        "assert {'densemonoslam_tpu_torch.cli', 'densemonoslam_tpu_torch.viewer', 'densemonoslam_tpu_torch.io.native'} <= set(mods)\n"
+        "assert sys.modules['densemonoslam_tpu_torch.io.native']._STATE is None  # nothing built or loaded\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120

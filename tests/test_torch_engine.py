@@ -9,11 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from densemonoslam_tpu_torch import cli
 from densemonoslam_tpu_torch.config import CameraConfig, EngineConfig
 from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.eval import ate_rmse
 from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.io.writers import load_ply
+from densemonoslam_tpu_torch.mapping.surfel_map import empty_map
 from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
 from densemonoslam_tpu_torch.ops.warp import pixel_grid
 from densemonoslam_tpu_torch.step import init_state
@@ -123,8 +125,11 @@ def test_engine_second_frontend_and_missing_depth_raise(seq):
         lambda: pixel_grid(12, 16),
         lambda: DepthPredictor.pretrained_synthetic(),
         lambda: SparseTracker(CameraConfig.tum_default().intrinsics),
+        lambda: empty_map(1 << 10),
+        lambda: cli.run(["--frames", "1"]),
     ],
-    ids=["engine", "init_state", "pixel_grid", "depth_predictor", "sparse_tracker"],
+    ids=["engine", "init_state", "pixel_grid", "depth_predictor", "sparse_tracker",
+         "empty_map", "cli"],
 )
 def test_entry_points_default_to_cuda(make):
     """Without `device=` the entry points run on the card: with no card

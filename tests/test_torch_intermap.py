@@ -285,3 +285,59 @@ def test_engine_multi_frontend_isolated_maps(seq):
     assert eng.surfel_count("camA") > 0 and eng.surfel_count("camB") > 0
     assert eng.frontends["camA"].map_name != eng.frontends["camB"].map_name
     assert eng.maps["camA"].map_data is not eng.maps["camB"].map_data
+
+
+def test_three_cameras_merged_map_fern_database(seq, monkeypatch):
+    """ROADMAP D4 / reference defect R7.  Cameras A, B and C are created in
+    that order, then A's map merges into B's.  The fern, pyramid, merge and
+    resolve calls are stubbed (each fern database is a name), so only the
+    engines' choice of database shows:
+
+    - the JAX engine queries map B through A's database (the earliest-created
+      member), which lacks B's keyframes, and consumes C's ferns into A's;
+    - the port queries map B through B's database, which received A's ferns
+      in the merge, and consumes C's ferns into it as well (the first member
+      of `MapBackend.contexts`, the map's own camera)."""
+    import densemonoslam_tpu.engine as jengmod
+    import densemonoslam_tpu_torch.engine as tengmod
+    from densemonoslam_tpu.engine import Engine as JEngine
+
+    queried = {}
+
+    def resolve(tag):
+        def fn(frame_pyr, code, db, *rest):
+            queried[tag] = db
+            return np.eye(4, dtype=np.float32), False, {}
+        return fn
+
+    for tag, loops, ferns, odo, surfels in (
+        ("jax", jloops, jferns, jodo, jengmod.sm),
+        ("port", tloops, tferns, todo, tengmod.sm),
+    ):
+        monkeypatch.setattr(loops, "resolve_intermap", resolve(tag))
+        monkeypatch.setattr(loops, "merge_maps", lambda dd, dc, sd, sc, T: (dd, dc, 0))
+        monkeypatch.setattr(loops, "consume_ferns", lambda dst, src, T: f"{dst}+{src}")
+        monkeypatch.setattr(ferns, "encode", lambda coder, rgb8, d8: None)
+        monkeypatch.setattr(ferns, "downsample_for_ferns", lambda x, f: x)
+        monkeypatch.setattr(odo, "build_frame_pyramid", lambda *a: None)
+        monkeypatch.setattr(surfels, "compact", lambda m, **kw: m)
+
+    cfg = dict(CFG, max_surfels=1 << 10)
+    rgb, depth = seq.frame(0)
+    jeng = JEngine(seq.camera, JCfg(**cfg))
+    teng = Engine(seq.camera, EngineConfig(**cfg), device="cpu")
+    for eng, loops in ((jeng, jloops), (teng, tloops)):
+        for cam in "ABC":
+            eng.frontend(cam).fern_state = loops.FernLoopState(coder=f"coder{cam}", db=f"db{cam}")
+        eng.merge_into("A", "B", np.eye(4, dtype=np.float32))
+        assert eng.frontends["B"].fern_state.db == "dbB+dbA"  # both: B receives A's ferns
+    jeng._try_intermap("C", rgb, depth)
+    teng._try_intermap(teng.frontends["C"], torch.from_numpy(rgb), torch.from_numpy(depth))
+    assert queried == {"jax": "dbA", "port": "dbB+dbA"}
+
+    for eng in (jeng, teng):
+        eng.merge_into("C", "B", np.eye(4, dtype=np.float32))
+    jdbs = {c: f.fern_state.db for c, f in jeng.frontends.items()}
+    tdbs = {c: f.fern_state.db for c, f in teng.frontends.items()}
+    assert jdbs == {"A": "dbA+dbC", "B": "dbB+dbA", "C": "dbC"}  # reference R7
+    assert tdbs == {"A": "dbA", "B": "dbB+dbA+dbC", "C": "dbC"}  # the port's choice

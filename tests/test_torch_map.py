@@ -218,3 +218,162 @@ def test_joint_histogram_counts_exact(rng, bins, vmax):
     ref = np.asarray(jfn(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid), bins, vmax))
     out = thist.joint_histogram(_t(a), _t(b), _t(valid), bins, vmax).numpy()
     assert np.array_equal(out, ref)
+
+
+# ---- the standalone fusion wrappers on `tests/test_map.py`'s cases ------------
+
+
+def _jmap(data, count):
+    return jsm.SurfelMap(data=jnp.asarray(data), count=jnp.asarray(count, jnp.int32))
+
+
+def _tmap(data, count):
+    return tsm.SurfelMap(data=_t(data).clone(), count=torch.tensor(int(count)))
+
+
+def _maps_equal(tm, jm, atol=1e-4):
+    """Counts and alive rows exact, attributes within `atol`."""
+    assert int(tm.count) == int(jm.count)
+    assert int(tm.num_alive()) == int(jm.num_alive())
+    np.testing.assert_array_equal(tm.alive.numpy(), np.asarray(jm.alive))
+    for col in ("positions", "confidences", "colors", "radii", "normals", "init_times",
+                "last_seen"):
+        np.testing.assert_allclose(getattr(tm, col).numpy(), np.asarray(getattr(jm, col)),
+                                   rtol=1e-4, atol=atol, err_msg=col)
+
+
+@pytest.fixture(scope="module")
+def fused(world):
+    """`test_map.py`'s bootstrap (frame 0 fused into an empty map at its true
+    pose) in both packages, with each frame's maps as numpy."""
+    seq, ji = world["seq"], world["ji"]
+
+    def frame(i):
+        rgb, depth = seq.frame(i)
+        vmap = np.asarray(jgeo.backproject(jnp.asarray(depth), ji))
+        nmap = np.asarray(jgeo.normal_map(jnp.asarray(vmap)))
+        return dict(rgb=rgb, depth=depth, vmap=vmap, nmap=nmap,
+                    pose=seq.gt_pose(i).astype(np.float32))
+
+    frames = {i: frame(i) for i in (0, 4, 5)}
+    f0 = frames[0]
+    jm, jst = jfus.fuse(jsm.empty_map(CAP), jnp.asarray(f0["vmap"]), jnp.asarray(f0["nmap"]),
+                        jnp.asarray(f0["rgb"]), jnp.asarray(f0["pose"]), world["ji"], time=0)
+    tm, tst = tfus.fuse(tsm.empty_map(CAP, device="cpu"), _t(f0["vmap"]), _t(f0["nmap"]),
+                        _t(f0["rgb"]), _t(f0["pose"]), world["ti"], time=0)
+    # numpy copies: the reference's fuse donates the map it is given
+    return dict(frames=frames, jm=jm, jst=jst, tm=tm, tst=tst,
+                data=np.array(jm.data), count=int(jm.count))
+
+
+def test_fuse_into_empty_map_matches_reference(fused):
+    """Every valid pixel of frame 0 becomes a surfel, in both packages."""
+    assert tuple(int(x) for x in fused["tst"]) == tuple(int(x) for x in fused["jst"])
+    assert int(fused["tst"].matched) == 0 and int(fused["tm"].count) > 0.85 * H * W
+    _maps_equal(fused["tm"], fused["jm"])
+
+
+def _jax_pred(data, count, pose, ji, time, window):
+    """The reference's association render inside `fusion.fuse`."""
+    return jsplat.render(jnp.asarray(data), jnp.asarray(count, jnp.int32), jnp.asarray(pose),
+                         ji, W, H, jnp.asarray(time, jnp.float32), time_delta=200,
+                         mode=jsplat.MODE_ACTIVE, window=window, packed_zbuffer=False)
+
+
+def _torch_pred(jp):
+    return tsplat.Prediction(*(_t(x).long() if x.dtype == jnp.int32 else _t(x) for x in jp))
+
+
+@pytest.mark.parametrize(
+    "frame,time,window",
+    [(0, 1, 0), (4, 4, 0), (4, 300, 0), (4, 4, 1 << 12)],
+    ids=["refuse-same-frame", "second-view", "second-view-late", "second-view-window"],
+)
+def test_fuse_matches_reference(world, fused, frame, time, window):
+    """`fusion.fuse` on the bootstrapped map (`test_map.py`'s cases).  Given
+    the reference's own association render, the port's fusion reproduces the
+    reference's `fuse` exactly in its counts (matched / added / culled /
+    dropped, the maps' counts and alive rows) and within 1e-4 in the
+    attributes.  The port's whole `fuse`, with its own render, matches the
+    stats within the render's parity tolerance (`test_render_matches_reference`:
+    0.5% of the pixels may change winner on an f32 tie)."""
+    f = fused["frames"][frame]
+    kw = dict(weight_mult=0.7, cluster_id=3.0)
+    jm, jst = jfus.fuse(_jmap(fused["data"], fused["count"]),
+                        jnp.asarray(f["vmap"]), jnp.asarray(f["nmap"]), jnp.asarray(f["rgb"]),
+                        jnp.asarray(f["pose"]), world["ji"], time=time, window=window,
+                        packed_zbuffer=False, **kw)
+    # at t=300 every surfel of frame 0 is inactive: nothing to match
+    assert int(jst.matched) > 1000 if time < 200 else int(jst.added) > 1000
+    jp = _jax_pred(fused["data"], fused["count"], f["pose"], world["ji"], time, window)
+    tm, tst = tfus.fuse_with_pred(_tmap(fused["data"], fused["count"]), _torch_pred(jp),
+                                  _t(f["vmap"]), _t(f["nmap"]), _t(f["rgb"]), _t(f["pose"]),
+                                  world["ti"], time=time, window=window, **kw)
+    assert tuple(int(x) for x in tst) == tuple(int(x) for x in jst)
+    _maps_equal(tm, jm)
+
+    tm2, tst2 = tfus.fuse(_tmap(fused["data"], fused["count"]), _t(f["vmap"]), _t(f["nmap"]),
+                          _t(f["rgb"]), _t(f["pose"]), world["ti"], time=time, window=window,
+                          packed_zbuffer=False, **kw)
+    for a, b in zip(tst2, jst):
+        assert abs(int(a) - int(b)) <= 0.005 * H * W
+    assert int(tm2.count) == int(fused["count"]) + int(tst2.added)
+
+
+def test_fuse_with_pred_inline_clean_matches_reference(world, fused):
+    """`fuse_with_pred` with the inline clean, from the reference's own
+    windowed prediction: stats exact, maps as above."""
+    f = fused["frames"][5]
+    data, count = fused["data"], fused["count"]
+    jp = _jax_pred(data, count, f["pose"], world["ji"], 20, 1 << 12)
+    tp = _torch_pred(jp)
+    args = dict(time=20, window=1 << 12, conf_threshold=10.0)
+    jm, jst = jfus.fuse_with_pred(_jmap(data, count), jp, jnp.asarray(f["vmap"]),
+                                  jnp.asarray(f["nmap"]), jnp.asarray(f["rgb"]),
+                                  jnp.asarray(f["pose"]), world["ji"],
+                                  clean_depth=jnp.asarray(f["depth"]), **args)
+    tm, tst = tfus.fuse_with_pred(_tmap(data, count), tp, _t(f["vmap"]), _t(f["nmap"]),
+                                  _t(f["rgb"]), _t(f["pose"]), world["ti"],
+                                  clean_depth=_t(f["depth"]), **args)
+    assert int(jst.matched) > 1000 and int(jst.culled) > 0
+    assert tuple(int(x) for x in tst) == tuple(int(x) for x in jst)
+    _maps_equal(tm, jm)
+
+
+def _violator(fused):
+    """The bootstrapped map with `test_map.py`'s planted surfel 1 m in front
+    of the far wall, dead centre of frame 0."""
+    data, count = fused["data"].copy(), fused["count"]
+    pose = fused["frames"][0]["pose"]
+    row = np.zeros(16, np.float32)
+    row[0:3] = pose[:3, :3] @ np.array([0.0, 0.0, 1.0]) + pose[:3, 3]
+    row[tsm.CONF], row[tsm.RADIUS] = 5.0, 0.01
+    row[8:11] = -(pose[:3, :3] @ np.array([0, 0, 1.0]))
+    data[count] = row
+    return data, count + 1
+
+
+@pytest.mark.parametrize(
+    "case,window",
+    [("free-space", 0), ("stale", 0), ("free-space", 1 << 12), ("stale", 1 << 12)],
+    ids=["free-space", "stale", "free-space-window", "stale-window"],
+)
+def test_clean_matches_reference(fused, world, case, window):
+    """`fusion.clean` on `test_map.py`'s two cases (a free-space violator at
+    t=1; every unstable surfel stale at t=100 with an empty depth frame):
+    the same rows culled, bit for bit the same map."""
+    f = fused["frames"][0]
+    if case == "free-space":
+        data, count = _violator(fused)
+        depth, t = f["depth"], 1
+    else:
+        data, count = fused["data"], fused["count"]
+        depth, t = np.zeros_like(f["depth"]), 100
+    jm, jk = jfus.clean(_jmap(data, count), jnp.asarray(depth), jnp.asarray(f["pose"]),
+                        world["ji"], time=t, window=window)
+    tm, tk = tfus.clean(_tmap(data, count), _t(depth), _t(f["pose"]), world["ti"], time=t,
+                        window=window)
+    assert int(tk) == int(jk) >= 1
+    if case == "free-space":
+        assert float(tm.data[count - 1, tsm.CONF]) == 0.0
+    assert np.array_equal(tm.data.numpy(), np.asarray(jm.data))
