@@ -35,7 +35,8 @@ Phases (any failure raises, so the exit code is not 0):
    have launched K1; K1's launches per frame;
 8. the monocular street leg, the JAX bench's `_run_mono_street`
    configuration on the port: `StreetSequence` at KITTI 1024x320 (520
-   frames, rendered on the host by a pool that runs during legs 1-7), the
+   frames, rendered on the host by a pool that runs during legs 1-7, then
+   renders leg 14's), the
    packaged street depth net, ORB tracking with local BA, hybrid loops, a
    1<<22-surfel map; the frames stay in host memory and each is uploaded
    by `process_frame`, as in the bench; the lap's first 320 frames: 66
@@ -72,7 +73,17 @@ Phases (any failure raises, so the exit code is not 0):
    run-to-run difference (and a checkpoint the CPU wrote, loaded on the
    card), a 30 Hz live UDP stream into `cli.main --live-port` (frames sent,
    received, processed), and a `ViewerServer` on the two-camera engine;
-14. K1 at the other shapes the legs launched it at, and per shape its
+14. the depth CNN's training (`examples/torch_train_depthnet{,_street}.py`,
+   their frames rendered by the background pool after the mono leg's): the
+   gradient and 5 steps' losses on the card against the CPU from one
+   flax-style start, the synthetic trainer (600 steps, its own <10%
+   held-out assertion, the loss halved) and the street trainer (800 steps,
+   both held-out errors < 20%, the loss halved) at their own
+   configurations, then the card-trained synthetic net loaded through
+   `DepthPredictor.load` in the monocular engine (`tests/test_depthnet.py`'s
+   10 RGB-only frames, through K1); ms per train step at the trainers'
+   three shapes, steps/s, peak device memory;
+15. K1 at the other shapes the legs launched it at, and per shape its
    launches over the legs times (device time - bound).
 
 Each leg sets every launch count to 0 just before it and reads the counts
@@ -807,12 +818,33 @@ def _street_sequence() -> StreetSequence:
                           exposure_jitter=0.03)
 
 
-def _street_arrays(buf, seq: StreetSequence) -> tuple[np.ndarray, np.ndarray]:
+def _example(name: str):
+    """An example entry point of the port (`examples/<name>.py`) as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _render_sets() -> dict:
+    """Every sequence whose frames the host renders in the background, by
+    name: the mono leg's lap, then the train leg's (the trainers' own
+    `sequences()`)."""
+    syn = _example("torch_train_depthnet").sequences()
+    laps, kitti = _example("torch_train_depthnet_street").sequences()
+    return {"mono": _street_sequence(), **{f"train_syn{k}": s for k, s in enumerate(syn)},
+            **{f"train_street{k}": s for k, s in enumerate(laps)}, "train_kitti": kitti}
+
+
+def _frame_arrays(buf, seq) -> tuple[np.ndarray, np.ndarray]:
     """The [N, H, W, 3] u8 RGB and [N, H, W] f32 depth views of one buffer."""
-    res = seq.camera.resolution
-    n_px = STREET_FRAMES * res.height * res.width
-    rgb = np.ndarray((STREET_FRAMES, res.height, res.width, 3), np.uint8, buf)
-    depth = np.ndarray((STREET_FRAMES, res.height, res.width), np.float32, buf, offset=3 * n_px)
+    res, n = seq.camera.resolution, len(seq)
+    n_px = n * res.height * res.width
+    rgb = np.ndarray((n, res.height, res.width, 3), np.uint8, buf)
+    depth = np.ndarray((n, res.height, res.width), np.float32, buf, offset=3 * n_px)
     return rgb, depth
 
 
@@ -820,28 +852,36 @@ _RENDER_WORKER: dict = {}  # a render worker's own state, set by its initializer
 _ONE_THREAD = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
-def _street_worker_init(shm_name: str) -> None:
-    shm = shared_memory.SharedMemory(name=shm_name)
-    seq = _street_sequence()
-    _RENDER_WORKER.update(shm=shm, seq=seq, arrays=_street_arrays(shm.buf, seq))
+def _render_worker_init(shm_names: dict) -> None:
+    seqs = _render_sets()
+    shms = {name: shared_memory.SharedMemory(name=shm) for name, shm in shm_names.items()}
+    _RENDER_WORKER.update(seqs=seqs, shms=shms, arrays={
+        name: _frame_arrays(shm.buf, seqs[name]) for name, shm in shms.items()})
 
 
-def _render_street_frame(i: int) -> None:
-    rgb, depth = _RENDER_WORKER["arrays"]
-    rgb[i], depth[i] = _RENDER_WORKER["seq"].frame(i)
+def _render_frame(job: tuple) -> None:
+    name, i = job
+    rgb, depth = _RENDER_WORKER["arrays"][name]
+    rgb[i], depth[i] = _RENDER_WORKER["seqs"][name].frame(i)
 
 
-class StreetRender:
-    """The mono leg's 520 KITTI-sized street frames (RGB, true depth),
-    rendered on the host in the background while the earlier legs run: a
+class HostRender:
+    """The frames the later legs need, rendered on the host in the background
+    while the earlier legs run: the mono leg's 520 KITTI-sized street frames
+    (RGB, true depth) first, then the train leg's (the synthetic trainer's
+    160 views, the street trainer's 390 at 256x80 and 130 at 1024x320).  A
     spawned pool (two cores left to the legs) writes them into one shared
-    memory block, so nothing is pickled back."""
+    memory block per sequence, so nothing is pickled back."""
 
     def __init__(self):
-        self.seq = _street_sequence()
-        res = self.seq.camera.resolution
-        self._shm = shared_memory.SharedMemory(
-            create=True, size=7 * STREET_FRAMES * res.height * res.width)
+        self.seqs = _render_sets()
+        self.seq = self.seqs["mono"]
+        self.jobs = {"mono": ["mono"], "train": [n for n in self.seqs if n.startswith("train_")]}
+        self._shm = {}
+        for name, seq in self.seqs.items():
+            res = seq.camera.resolution
+            self._shm[name] = shared_memory.SharedMemory(
+                create=True, size=7 * len(seq) * res.height * res.width)
         self.workers = max(len(os.sched_getaffinity(0)) - 2, 1)
         self._t0 = time.perf_counter()
         # one BLAS thread per worker (read when a worker loads numpy): idle
@@ -850,44 +890,54 @@ class StreetRender:
         os.environ.update(dict.fromkeys(_ONE_THREAD, "1"))
         try:
             self._pool = multiprocessing.get_context("spawn").Pool(
-                self.workers, initializer=_street_worker_init, initargs=(self._shm.name,))
+                self.workers, initializer=_render_worker_init,
+                initargs=({name: shm.name for name, shm in self._shm.items()},))
         finally:
             for k, v in saved.items():
                 if v is None:
                     os.environ.pop(k)
                 else:
                     os.environ[k] = v
-        self._job = self._pool.map_async(_render_street_frame, range(STREET_FRAMES), chunksize=4)
+        # queued in this order: the mono leg's frames come first
+        self._jobs = {job: self._pool.map_async(
+            _render_frame, [(name, i) for name in names for i in range(len(self.seqs[name]))],
+            chunksize=4) for job, names in self.jobs.items()}
 
-    def host_frames(self) -> list:
-        """Wait for the render, stop the pool, copy the frames out of the
-        shared block and free it: a list of (RGB, depth) numpy frames in
-        host memory, as the JAX bench holds them."""
+    def host_frames(self, job: str) -> dict:
+        """Wait for one job's frames ("mono" or "train"), copy them out of
+        their shared blocks and free those: by sequence name, a list of
+        (RGB, depth) numpy frames in host memory, as the JAX bench holds
+        them.  The pool stops once every job is fetched."""
         t_wait = time.perf_counter()
-        self._job.get()
+        self._jobs.pop(job).get()
         done = time.perf_counter()
-        self._pool.close()
-        self._pool.join()
-        log(f"[street] {STREET_FRAMES} frames of 1024x320 rendered on {self.workers} background "
-            f"host processes, done {done - self._t0:.1f} s after the start (waited "
-            f"{done - t_wait:.1f} s for them)")
-        views = _street_arrays(self._shm.buf, self.seq)
-        rgb, depth = np.array(views[0]), np.array(views[1])
-        del views  # the views must go before the block is closed
-        self._release()
-        return list(zip(rgb, depth))
+        if not self._jobs:
+            self._pool.close()
+            self._pool.join()
+        out = {}
+        for name in self.jobs[job]:
+            views = _frame_arrays(self._shm[name].buf, self.seqs[name])
+            rgb, depth = np.array(views[0]), np.array(views[1])
+            del views  # the views must go before the block is closed
+            self._release(name)
+            out[name] = list(zip(rgb, depth))
+        n = sum(len(f) for f in out.values())
+        log(f"[render] {job}: {n} frames rendered on {self.workers} background host processes, "
+            f"done {done - self._t0:.1f} s after the start (waited {done - t_wait:.1f} s for them)")
+        return out
 
-    def _release(self) -> None:
-        if self._shm is not None:
-            self._shm.close()
-            self._shm.unlink()
-            self._shm = None
+    def _release(self, name: str) -> None:
+        shm = self._shm.pop(name, None)
+        if shm is not None:
+            shm.close()
+            shm.unlink()
 
     def stop(self) -> None:
-        """End the workers and free the block, whatever state they are in."""
+        """End the workers and free the blocks, whatever state they are in."""
         self._pool.terminate()
         self._pool.join()
-        self._release()
+        for name in list(self._shm):
+            self._release(name)
 
 
 def _range_device_ms(prof, prefix: str) -> dict:
@@ -2095,6 +2145,164 @@ def phase_app() -> dict:
                 ckpt=ckpt, live=live, viewer=viewer)
 
 
+# ---------------------------------------------------------------------------
+# the train leg: the depth CNN's trainers (`examples/torch_train_depthnet.py`,
+# `examples/torch_train_depthnet_street.py`) at their own configurations on
+# the card, then the card-trained net driving the monocular engine
+# ---------------------------------------------------------------------------
+
+# card against CPU from one initialisation: each parameter's gradient
+# (relative norm) and the 5 steps' losses (relative).  cuDNN sums in another
+# order than the CPU's convolutions, and its weight gradients may use atomics
+TRAIN_TOL = 1e-3
+TRAIN_STREET_BOUND = 0.20  # held-out relative depth error, at both resolutions
+# tests/test_depthnet.py:164-206, the monocular engine on a trained net
+TRAIN_MONO = dict(max_surfels=1 << 17, depth_cutoff=8.0, depth_factor=1.0,
+                  nid_keyframing=False, open_loop=True, predict_depth=True)
+TRAIN_MONO_FRAMES, TRAIN_MONO_REL, TRAIN_MONO_ATE_M = 10, 0.12, 0.15
+# (H, W), batch: the trainers' three step shapes
+TRAIN_STEP_SHAPES = [((120, 160), 4), ((80, 256), 4), ((320, 1024), 2)]
+
+
+def _train_batch(frames: list) -> tuple:
+    rgb = torch.from_numpy(np.stack([f[0] for f in frames]).astype(np.float32) / 255.0)
+    return rgb, torch.from_numpy(np.stack([f[1] for f in frames]))
+
+
+def _train_card_against_cpu(mod, frames: list) -> dict:
+    """From one flax-style initialisation (seed 0) and the synthetic
+    trainer's first 4 views: each parameter's gradient of `l1_depth_loss` on
+    the card against the CPU's, then 5 train steps on each."""
+    from densemonoslam_tpu_torch.models.depthnet import DepthNet, l1_depth_loss, make_train_step
+
+    rgb, gt = _train_batch(frames[:4])
+    grads, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        net = DepthNet(mod.WIDTHS, mod.MIN_D, mod.MAX_D, seed=0).to(dev)
+        l1_depth_loss(net(rgb.to(dev).permute(0, 3, 1, 2)), gt.to(dev)).backward()
+        grads[dev] = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=mod.LR,
+                                                     betas=(0.9, 0.999), eps=1e-8))
+        losses[dev] = torch.stack([step(rgb.to(dev), gt.to(dev)) for _ in range(5)]).cpu().numpy()
+    rel = {k: float((grads["cuda"][k] - g).norm() / g.norm()) for k, g in grads["cpu"].items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    log(f"[train] card against CPU, {len(rel)} parameters at {tuple(rgb.shape[:3])}: largest "
+        f"relative gradient difference {rel[worst]:.3e} ({worst}; median "
+        f"{statistics.median(rel.values()):.3e}); 5 steps' losses card "
+        f"{np.array2string(losses['cuda'], precision=6)}, CPU "
+        f"{np.array2string(losses['cpu'], precision=6)}, largest relative difference "
+        f"{loss_rel:.3e} (tolerance {TRAIN_TOL:g} for both)")
+    if not (rel[worst] <= TRAIN_TOL and loss_rel <= TRAIN_TOL):
+        raise AssertionError(f"card against CPU: gradient {rel[worst]} ({worst}), loss {loss_rel}")
+    return dict(grad_rel=rel[worst], loss_rel=loss_rel)
+
+
+def _train_mono(mod, path: str) -> dict:
+    """`tests/test_depthnet.py:164-206` on the card with the card-trained
+    weights: the depth of a view of the scene, then 10 RGB-only frames of the
+    monocular engine (K1 on every tracked frame)."""
+    pred = DepthPredictor(widths=mod.WIDTHS, min_depth=mod.MIN_D, max_depth=mod.MAX_D)
+    pred.load(path)
+    seq = SyntheticSequence(num_frames=40, radius=0.35, max_angle=0.3)
+    rgb, depth = seq.frame(0)
+    d_hat = pred.predict(rgb).cpu().numpy()
+    m = depth > 0
+    rel = float(np.mean(np.abs(d_hat[m] - depth[m]) / depth[m]))
+    eng = Engine(seq.camera, EngineConfig(**TRAIN_MONO))
+    eng.frontend("cam0")
+    eng.set_depth_predictor(pred)
+    eng.frontends["cam0"].pose = seq.gt_pose(0).astype(np.float32)
+    reset_counts()
+    n_ok = 0
+    for i in range(TRAIN_MONO_FRAMES):
+        info = eng.process_frame("cam0", seq.frame(i)[0], None, float(i))
+        n_ok += info["tracking_ok"] == 1.0
+    torch.cuda.synchronize()
+    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    shapes = by_shape()
+    est = [p for _, p in eng.frontends["cam0"].trajectory]
+    ate = float(ate_rmse(est, [seq.gt_pose(i) for i in range(TRAIN_MONO_FRAMES)]))
+    log(f"[train] the card-trained net in the monocular engine: frame 0 relative depth error "
+        f"{rel * 100:.2f}% (bound {TRAIN_MONO_REL * 100:.0f}%); {n_ok} of {TRAIN_MONO_FRAMES} "
+        f"RGB-only frames tracked (bound 8), ATE {ate:.4f} m (bound {TRAIN_MONO_ATE_M}), "
+        f"{eng.surfel_count('cam0')} surfels; K1 {launches['gram']} launches {shapes}, "
+        f"K2 {launches['deform']}")
+    if not (rel < TRAIN_MONO_REL and n_ok >= 8 and ate < TRAIN_MONO_ATE_M):
+        raise AssertionError(f"monocular engine on the trained net: rel {rel}, {n_ok} tracked, "
+                             f"ATE {ate} m")
+    if launches["gram"] == 0:
+        raise AssertionError("the monocular engine launched no K1: it did not track on the card")
+    return dict(rel=rel, tracked=int(n_ok), ate_m=ate, launches=launches, shapes=shapes)
+
+
+def _train_step_ms(mod, hw: tuple, batch: int) -> float:
+    """Median ms of one synchronised train step of the trainers' net at
+    (H, W) and `batch`, over 20 steps after 3 warm-up steps."""
+    from densemonoslam_tpu_torch.models.depthnet import DepthNet, make_train_step
+
+    net = DepthNet(mod.WIDTHS, mod.MIN_D, mod.MAX_D, seed=0).cuda()
+    step = make_train_step(net, torch.optim.Adam(net.parameters(), lr=mod.LR))
+    gen = np.random.default_rng(0)
+    rgb = torch.from_numpy(gen.uniform(0, 1, (batch, *hw, 3)).astype(np.float32)).cuda()
+    gt = torch.from_numpy(gen.uniform(mod.MIN_D, mod.MAX_D, (batch, *hw)).astype(np.float32)).cuda()
+    return call_ms(lambda: step(rgb, gt), n=20)
+
+
+def phase_train(frames: dict, smi: str) -> dict:
+    """The depth CNN's training on the card: (a) card against CPU from one
+    start, (b) the synthetic trainer at its own configuration (600 steps,
+    its own <10% held-out assertion, the loss halved), (c) the street
+    trainer at its own (800 steps, both held-out errors < 20%, the loss
+    halved), (d) (b)'s weights loaded through `DepthPredictor.load` driving
+    the monocular engine; then ms per train step at the trainers' shapes."""
+    import shutil
+    import tempfile
+
+    from densemonoslam_tpu_torch.models.depthnet import WEIGHTS_DIR
+
+    syn_mod = _example("torch_train_depthnet")
+    street_mod = _example("torch_train_depthnet_street")
+    syn_frames = [f for k in range(len(syn_mod.ORBITS)) for f in frames[f"train_syn{k}"]]
+    street_frames = frames["train_street0"] + frames["train_street1"]
+    torch.cuda.reset_peak_memory_stats()
+    a = _train_card_against_cpu(syn_mod, syn_frames)
+    out = tempfile.mkdtemp(prefix="train_")
+    try:
+        syn = syn_mod.train(syn_frames, device="cuda", out=out)
+        street = street_mod.train(street_frames, frames["train_kitti"], device="cuda", out=out)
+        for name, res in (("synthetic", syn), ("street", street)):
+            if not res["losses"][-1] < 0.5 * res["losses"][0]:
+                raise AssertionError(f"{name} trainer: loss {res['losses'][0]} -> "
+                                     f"{res['losses'][-1]}, not halved")
+        if not (street["rel"] < TRAIN_STREET_BOUND and street["rel_kitti"] < TRAIN_STREET_BOUND):
+            raise AssertionError(f"street trainer: held-out errors {street['rel']}, "
+                                 f"{street['rel_kitti']}")
+        mono = _train_mono(syn_mod, syn["path"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = {(hw, b): _train_step_ms(syn_mod, hw, b) for hw, b in TRAIN_STEP_SHAPES}
+    with open(WEIGHTS_DIR / "depthnet_street.json") as f:
+        jax_run = json.load(f)  # the packaged street weights' run (JAX)
+    for name, res in (("synthetic", syn), ("street", street)):
+        log(f"[train] {name} trainer: {res['steps']} steps in {res['train_s']:.2f} s, "
+            f"{res['steps'] / res['train_s']:.1f} steps/s; loss {res['losses'][0]:.4f} -> "
+            f"{res['losses'][-1]:.4f}")
+    log(f"[train] held-out relative depth error: synthetic {syn['rel'] * 100:.2f}% (bound 10%); "
+        f"street 256x80 {street['rel'] * 100:.2f}%, 1024x320 {street['rel_kitti'] * 100:.2f}% "
+        f"(bound {TRAIN_STREET_BOUND * 100:.0f}%; the JAX run of the packaged street weights: "
+        f"{jax_run['held_out_rel_err'] * 100:.2f}%, "
+        f"{jax_run['held_out_rel_err_kitti'] * 100:.2f}%)")
+    log(f"[train] ms per train step (synchronised, median of 20): "
+        + ", ".join(f"{w}x{h} batch {b} {ms:.3f} ms" for ((h, w), b), ms in step_ms.items())
+        + f"; peak device memory {peak / 2**20:.1f} MiB; {smi}")
+    return dict(card_vs_cpu=a, syn_rel=syn["rel"], street_rel=street["rel"],
+                street_rel_kitti=street["rel_kitti"], mono=mono, step_ms=step_ms, peak=peak,
+                launches=mono["launches"], shapes=mono["shapes"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -2103,14 +2311,14 @@ def main() -> int:
         print("RESULT " + json.dumps(res), flush=True)
         torch.distributed.destroy_process_group()
         return 0
-    street = StreetRender()  # forks its workers before any CUDA work
+    street = HostRender()  # forks its workers before any CUDA work
     try:
         return run(street)
     finally:
         street.stop()
 
 
-def run(street: StreetRender) -> int:
+def run(street: HostRender) -> int:
     smi = phase_device()
     clock = time.perf_counter()
 
@@ -2139,7 +2347,7 @@ def run(street: StreetRender) -> int:
     lap("K2 on the closed-loop map")
     reloc = phase_relocalisation()
     lap("relocalisation")
-    street_frames = street.host_frames()
+    street_frames = street.host_frames("mono")["mono"]
     mono = phase_mono_street(street.seq, street_frames)
     torch.cuda.empty_cache()
     lap("mono street")
@@ -2157,11 +2365,14 @@ def run(street: StreetRender) -> int:
     app = phase_app()
     torch.cuda.empty_cache()
     lap("app")
+    train = phase_train(street.host_frames("train"), smi)
+    torch.cuda.empty_cache()
+    lap("train")
     # K1 at the shapes the legs launched it at that phase 1 did not cover,
     # then launches x (time - bound) per shape over the legs
     legs = {"open": slam["shapes"], "closed": closed["shapes"], "reloc": reloc["shapes"],
             "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"],
-            "app": app["shapes"]}
+            "app": app["shapes"], "train": train["shapes"]}
     seen = sorted({shape for leg in legs.values() for shape in leg}, reverse=True)
     more = phase_gram([shape for shape in seen if shape not in k1["times"]])
     k1["times"].update(more["times"])
@@ -2187,7 +2398,7 @@ def run(street: StreetRender) -> int:
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
             "launches": slam["launches"] + closed["launches"]["gram"] + reloc["launches"]
             + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"]
-            + app["launches"]["gram"],
+            + app["launches"]["gram"] + train["launches"]["gram"],
             "launches_per_call": g["launches_per_call"],
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
@@ -2204,7 +2415,7 @@ def run(street: StreetRender) -> int:
             "replaces": "densemonoslam_tpu/ops/pallas/deform.py:201",
             "launches": closed["launches"]["deform"] + mono["launches"]["deform"]
             + hybrid["launches"] + two["launches"]["deform"] + collab["launches"]["deform"]
-            + app["launches"]["deform"],
+            + app["launches"]["deform"] + train["launches"]["deform"],
             "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
             "ms": k2_real["ms"],
             "prev_ms": k2_real["prev_ms"],

@@ -16,7 +16,8 @@ format:
 `load_initializers(path)` returns ``{name: np.ndarray}``.  ONNX convolution
 weights are OIHW, torch's own layout, so `load_depthnet_params` copies them
 as they are; `flax_conv_to_torch` converts the JAX package's HWIO kernels
-(`models.depthnet.params_from_flax`).
+(`models.depthnet.params_from_flax`) and `torch_conv_to_flax` converts back
+(`models.depthnet.params_to_flax`).
 """
 
 from __future__ import annotations
@@ -127,6 +128,12 @@ def load_initializers(path: str) -> Dict[str, np.ndarray]:
 def flax_conv_to_torch(w: np.ndarray) -> np.ndarray:
     """flax/JAX conv kernel HWIO -> torch/ONNX OIHW."""
     return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
+
+
+def torch_conv_to_flax(w: np.ndarray) -> np.ndarray:
+    """torch/ONNX conv kernel OIHW -> flax/JAX HWIO (the JAX package's
+    `onnx_conv_to_flax`)."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
 
 
 def load_depthnet_params(path: str, name_map: Dict[str, str]) -> Dict[str, np.ndarray]:

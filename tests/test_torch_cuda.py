@@ -318,6 +318,62 @@ def test_depthnet_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4)
 
 
+def _tiny_training_batch():
+    """`tests/test_depthnet.py`'s tiny scene (48x64): 4 views as f32 RGB in
+    [0, 1] and depth."""
+    from densemonoslam_tpu_torch.config import CameraConfig, CameraIntrinsics, FrameResolution
+
+    cam = CameraConfig(FrameResolution(64, 48), CameraIntrinsics(52.0, 52.0, 31.5, 23.5), "tiny")
+    seq = SyntheticSequence(camera=cam, num_frames=12, radius=0.3, max_angle=0.25)
+    frames = [seq.frame(i) for i in range(4)]
+    rgb = torch.from_numpy(np.stack([f[0] for f in frames]).astype(np.float32) / 255.0)
+    return rgb, torch.from_numpy(np.stack([f[1] for f in frames]))
+
+
+def test_depthnet_gradients_on_cuda_match_cpu(cuda):
+    """The train leg's card-against-CPU check at the tiny size (widths (8,
+    16, 24)): from one flax-style initialisation (seed 0) and one batch,
+    every parameter's gradient of `l1_depth_loss` on the card within 1e-3
+    relative norm of the CPU's (cuDNN sums in another order; TF32 is off).
+    The conv biases that a one-channel-per-group GroupNorm cancels have no
+    true gradient: on both devices they stay below 1e-5 of their kernel's."""
+    from densemonoslam_tpu_torch.models import depthnet as tdn
+
+    rgb, gt = _tiny_training_batch()
+    grads = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        net = tdn.DepthNet((8, 16, 24), 0.3, 10.0, seed=0).to(dev)
+        tdn.l1_depth_loss(net(rgb.to(dev).permute(0, 3, 1, 2)), gt.to(dev)).backward()
+        grads[key] = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+    cancelled = {f"blocks.{i}.conv.bias" for i, b in enumerate(net.blocks)
+                 if b.norm.num_groups == b.norm.num_channels}
+    assert cancelled  # the width-8 blocks
+    for name, g in grads["cpu"].items():
+        on_card = grads["card"][name]
+        if name in cancelled:
+            kernel = float(grads["cpu"][name.replace("bias", "weight")].norm())
+            assert float(g.norm()) < 1e-5 * kernel and float(on_card.norm()) < 1e-5 * kernel, name
+        else:
+            assert float((on_card - g).norm() / g.norm()) <= 1e-3, name
+
+
+def test_depthnet_train_steps_on_cuda_match_cpu(cuda):
+    """5 `make_train_step` steps (Adam 3e-3) on one tiny batch from one
+    initialisation: the card's losses within 1e-3 relative of the CPU's,
+    each returned as a 0-dim tensor on the card."""
+    from densemonoslam_tpu_torch.models import depthnet as tdn
+
+    rgb, gt = _tiny_training_batch()
+    losses = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        net = tdn.DepthNet((8, 16, 24), 0.3, 10.0, seed=0).to(dev)
+        step = tdn.make_train_step(net, torch.optim.Adam(net.parameters(), lr=3e-3))
+        out = [step(rgb.to(dev), gt.to(dev)) for _ in range(5)]
+        assert all(o.device.type == torch.device(dev).type and o.dim() == 0 for o in out)
+        losses[key] = torch.stack(out).cpu().numpy()
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-3)
+
+
 def test_detector_on_cuda_matches_cpu(cuda):
     """`detect_and_describe` and `detect_pyramid` on a 1024x320 street frame
     on the GPU and on the CPU: octave 0 identical in its keypoint slots,

@@ -2,6 +2,8 @@
 the JAX package's flax network with the packaged weights, and the port's
 ONNX initializer reader."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -9,13 +11,15 @@ import torch
 import jax.numpy as jnp
 
 from densemonoslam_tpu.io.synthetic import SyntheticSequence
+from densemonoslam_tpu.models import depthnet as jdepthnet
 from densemonoslam_tpu.models.depthnet import DepthPredictor as JDepth
 from densemonoslam_tpu_torch.models import onnx_import
-from densemonoslam_tpu_torch.models.depthnet import (
-    WEIGHTS_DIR, DepthNet, DepthPredictor, params_from_flax,
-)
+from densemonoslam_tpu_torch.models.depthnet import DepthNet, DepthPredictor, params_from_flax
 
 torch.set_num_threads(2)
+
+# the JAX package's packaged weight files (the port holds byte-equal copies)
+JAX_WEIGHTS = Path(jdepthnet.__file__).resolve().parent / "weights"
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +74,7 @@ def test_reduced_precision_and_weight_io(nets, tmp_path):
     other = DepthPredictor(widths=(16, 32, 64), min_depth=2.0, max_depth=80.0, device="cpu")
     other.load(str(tmp_path / "w.npz"))
     np.testing.assert_array_equal(other.predict(rgb).numpy(), ref)
-    other.load(str(WEIGHTS_DIR / "depthnet_street.npz"))
+    other.load(str(JAX_WEIGHTS / "depthnet_street.npz"))
     np.testing.assert_array_equal(other.predict(rgb).numpy(), ref)
 
 
@@ -141,6 +145,6 @@ def test_onnx_full_depthnet_import(tmp_path, nets):
     rgb = np.random.default_rng(1).integers(0, 256, (120, 160, 3)).astype(np.uint8)
     np.testing.assert_array_equal(net.predict(rgb).numpy(), tp.predict(rgb).numpy())
     # every tensor of the flax tree lands on one of the port's parameters
-    with np.load(WEIGHTS_DIR / "depthnet_synthetic.npz") as z:
+    with np.load(JAX_WEIGHTS / "depthnet_synthetic.npz") as z:
         carried = params_from_flax({k: z[k] for k in z.files})
     assert set(carried) == set(DepthNet((16, 32, 64)).state_dict())

@@ -5,6 +5,9 @@ frames, ground-truth injection ATE < 1e-6, and the exports; every mode of
 the config runs a frame, a second frontend and RGB-only input without a
 depth net raise, and the entry points default to the card."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,8 @@ from densemonoslam_tpu_torch.step import init_state
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 
 torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
 
 BASE = dict(max_surfels=1 << 18, depth_cutoff=8.0, depth_factor=1.0, open_loop=True,
             nid_keyframing=False)
@@ -117,6 +122,14 @@ def test_engine_second_frontend_and_missing_depth_raise(seq):
         eng.process_frame("cam0", rgb, None, 0.0)
 
 
+def _example(name: str):
+    """An example entry point of the port (`examples/<name>.py`) as a module."""
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize(
     "make",
     [
@@ -127,9 +140,12 @@ def test_engine_second_frontend_and_missing_depth_raise(seq):
         lambda: SparseTracker(CameraConfig.tum_default().intrinsics),
         lambda: empty_map(1 << 10),
         lambda: cli.run(["--frames", "1"]),
+        lambda: _example("torch_train_depthnet").train(),
+        lambda: _example("torch_train_depthnet_street").train(),
+        lambda: _example("torch_run_multihost").main([]),
     ],
     ids=["engine", "init_state", "pixel_grid", "depth_predictor", "sparse_tracker",
-         "empty_map", "cli"],
+         "empty_map", "cli", "train_depthnet", "train_depthnet_street", "run_multihost"],
 )
 def test_entry_points_default_to_cuda(make):
     """Without `device=` the entry points run on the card: with no card
