@@ -18,6 +18,14 @@ Phases (any failure raises, so the exit code is not 0):
    ATE, map size and kernel-launch checks.  Then compactions of the map;
 3. where the time goes: 4 more frames under `torch.profiler`, with the
    device-busy share, device operations per frame and the top operations;
+3b. the odometry leg: `examples/torch_run_synthetic.py` at 640x480 on its
+   orbit, 30 frames: frame-to-frame tracking (5 levels; fps, ATE < 20 mm, no
+   failure, K1 launches by shape, device-busy ms per tracked frame under
+   `torch.profiler`), then the example's own 3 levels and its full engine
+   (reported), the batched pose history against a flush after every frame
+   on a short closed-loop run (bit-identical trajectories, ticks and
+   checkpoints; history writes per frame), and one level of the unpacked
+   ICP and RGB rows (307200x8 each) through K1 against its plain version;
 4. kernel K2 (whole-map deformation) against its plain version on a
    1<<20-row map and a 512-node graph: error, untouched bytes, passthrough,
    bit-identical reruns, times of the kernel, its previous design
@@ -128,11 +136,12 @@ from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.mapping import deformation as dg
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
-from densemonoslam_tpu_torch.ops import cuda_build, deform, gram, preprocess
+from densemonoslam_tpu_torch.ops import cuda_build, deform, gram, preprocess, reductions
 from densemonoslam_tpu_torch.tracking import odometry
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 
-GRAM_SHAPES = [(76800, 16), (19200, 16), (4800, 16), (4800, 8), (5000, 8)]
+# the first is the kernels line's headline shape (the open loop's finest level)
+GRAM_SHAPES = [(76800, 16), (19200, 16), (4800, 16), (4800, 8), (5000, 8), (307200, 8)]
 GRAM_TOL = dict(rtol=2e-5, atol=1e-2)  # tests/test_pallas.py's tolerance
 N_WARMUP, N_TIMED = 4, 30
 RES = (640, 480)
@@ -179,6 +188,15 @@ HYBRID_DRIFT = np.array([0.08, 0.0, 0.0], np.float32)
 # dependent operations at coordinates <= 10 m, well inside 1e-4; positions
 # farther out get it in proportion (`_deform_checks`)
 DEFORM_TOL = 1e-4
+# the odometry leg: `examples/torch_run_synthetic.py` at 640x480 on the JAX
+# example's orbit (radius 0.35, max angle 0.3), 30 frames, with its exit
+# code's ATE bound.  5 levels, so that the coarsest level (SO3's) is 40x30 as
+# the example's 3 levels make it at 160x120.  With fewer levels the JAX
+# package fails this orbit as the port does (`tools/odometry_levels_witness.py`
+# on a CPU): at 3 levels both lose frame 2 by 77 mm and frames 12-17 by up to
+# 190 mm, at 4 both lose frames 14-16 by up to 28 mm (ATE 25.8 mm in each).
+# The 3-level run is reported too
+ODO_FRAMES, ODO_LEVELS, ODO_PROFILED, ODO_ATE_M = 30, 5, 6, 0.02
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SPIN_HZ = 1.98e9  # the H100 SXM's top SM clock: `torch.cuda._sleep` spins in cycles
@@ -605,6 +623,151 @@ def _synthetic_deform_case():
     return d, count, graph
 
 
+class _RenderedOnce:
+    """A synthetic sequence whose frames are rendered once and kept: the leg
+    drives the same orbit four times."""
+
+    def __init__(self, seq: SyntheticSequence):
+        self.seq, self.camera, self.frames = seq, seq.camera, {}
+
+    def frame(self, i: int):
+        if i not in self.frames:
+            self.frames[i] = self.seq.frame(i)
+        return self.frames[i]
+
+    def gt_pose(self, i: int) -> np.ndarray:
+        return self.seq.gt_pose(i)
+
+
+def _rows_block(seq: SyntheticSequence) -> list:
+    """One 640x480 level's unpacked ICP and RGB rows, [307200, 8] each:
+    frame 1 against frame 0's maps at the true relative pose."""
+    intr = seq.camera.intrinsics
+    pyr = [odometry.build_frame_pyramid(*(torch.from_numpy(x).cuda() for x in seq.frame(i)),
+                                        intr, 1) for i in (0, 1)]
+    A = torch.from_numpy(
+        (np.linalg.inv(seq.gt_pose(0)) @ seq.gt_pose(1)).astype(np.float32)).cuda()
+    m, c = pyr
+    return [
+        reductions.icp_rows(c.vmap[0], c.nmap[0], m.vmap[0], m.nmap[0], A, intr),
+        reductions.rgb_rows(c.vmap[0], c.intensity[0], m.intensity[0], m.grad_x[0],
+                            m.grad_y[0], A, intr, depth_m=m.vmap[0][..., 2]),
+    ]
+
+
+def phase_odometry() -> dict:
+    """The odometry leg: `examples/torch_run_synthetic.py`'s frame-to-frame
+    path at 640x480 (fps, ATE, failures, K1 launches by shape, device-busy
+    ms per frame), its full-engine mode, one 307200x8 block of the unpacked
+    rows through K1 against `gram_reference`, and the batched pose history
+    against a flush after every frame."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    mod = _example("torch_run_synthetic")
+    camera = _camera()
+    seq = _RenderedOnce(SyntheticSequence(camera=camera, num_frames=ODO_FRAMES, radius=0.35,
+                                          max_angle=0.3))
+    for i in range(ODO_FRAMES):
+        seq.frame(i)
+    reset_counts()  # count only this path's launches from here
+    odo = mod.run_odometry(seq, ODO_FRAMES, "cuda", levels=ODO_LEVELS)
+    f2f = gram.LAUNCHES
+    per_pair = sum(odometry.ITERATIONS_DEFAULT) + odometry.SO3_ITERATIONS
+    stages = {k: round(v, 2) for k, v in odo["timer"].summary().items()}
+    log(f"[odometry] {ODO_FRAMES} frames at {RES[0]}x{RES[1]}, {ODO_LEVELS} levels: "
+        f"{odo['fps']:.2f} fps (frames 2..{ODO_FRAMES - 1}, synchronised), ATE "
+        f"{odo['ate'] * 1e3:.4f} mm, tracking failures {odo['failures']}; stage means (ms) "
+        f"{stages}")
+    log(f"[odometry] gram launches {f2f} ({f2f / (ODO_FRAMES - 1):.2f} per tracked frame) by "
+        f"(P, C): {by_shape()}")
+    if odo["failures"] or not odo["ate"] < ODO_ATE_M:
+        raise AssertionError(f"odometry: {odo['failures']} failures, ATE "
+                             f"{odo['ate'] * 1e3:.3f} mm (bound {ODO_ATE_M * 1e3:.0f} mm)")
+    if f2f < (ODO_FRAMES - 1) * per_pair:
+        raise AssertionError(f"odometry: {f2f} gram launches < {ODO_FRAMES - 1} tracked "
+                             f"frames x {per_pair} SO3+GN iterations")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mod.run_odometry(seq, ODO_PROFILED, "cuda", levels=ODO_LEVELS)
+    busy, ops = _device_us(prof)
+    log(f"[odometry] {ODO_PROFILED} frames under the profiler ({ODO_PROFILED} pyramids, "
+        f"{ODO_PROFILED - 1} tracks): device busy {busy / 1e3 / (ODO_PROFILED - 1):.3f} ms "
+        f"per tracked frame, {ops / (ODO_PROFILED - 1):.0f} device ops per tracked frame")
+
+    lit = mod.run_odometry(seq, ODO_FRAMES, "cuda")
+    log(f"[odometry] the example's own {mod.LEVELS} levels at {RES[0]}x{RES[1]}: "
+        f"{lit['fps']:.2f} fps, ATE {lit['ate'] * 1e3:.4f} mm, tracking failures "
+        f"{lit['failures']} (reported, not bounded)")
+    if not np.isfinite(lit["ate"]):
+        raise AssertionError("odometry at 3 levels: non-finite poses")
+
+    gram_before = gram.LAUNCHES
+    slam = mod.run_slam(seq, ODO_FRAMES, "cuda")
+    slam_launches = gram.LAUNCHES - gram_before
+    log(f"[odometry] full engine (the example's EngineConfig) on the same orbit: "
+        f"{slam['fps']:.2f} fps, ATE {slam['ate'] * 1e3:.4f} mm, frames not tracked "
+        f"{slam['failed']}, surfels {slam['surfels']}, gram launches {slam_launches} "
+        "(reported, not bounded: the example's 3 levels and 1<<18-surfel map are sized "
+        "for 160x120)")
+    if not np.isfinite(slam["ate"]):
+        raise AssertionError("the example's full engine: non-finite poses")
+    del slam
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        history_run = _repo_module(os.path.join("tests", "torch_closed_loop.py")).history_run
+        runs = [history_run(tmp, tag, flush, "cuda")
+                for tag, flush in (("batched", False), ("each", True), ("batched_again", False))]
+    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    shapes = by_shape()
+    batched, each, _ = runs
+    same = dict(
+        trajectory=all(np.array_equal(r["traj"], batched["traj"]) for r in runs),
+        ticks=all(np.array_equal(r["ticks"], batched["ticks"]) for r in runs),
+        checkpoint=all(r["ckpt"].keys() == batched["ckpt"].keys()
+                       and all(np.array_equal(r["ckpt"][k], batched["ckpt"][k])
+                               for k in batched["ckpt"]) for r in runs),
+    )
+    flushes = [i for i, w in enumerate(batched["writes"]) if w]
+    log(f"[odometry] pose history, batched vs a flush after every frame vs batched again "
+        f"(closed-loop scenario, {len(batched['writes'])} frames, a loop closed in each): "
+        f"bit-identical {same}")
+    log(f"[odometry] history writes per frame: batched {batched['writes']} (record_pose 0 "
+        f"on {len(batched['writes']) - len(flushes)} frames; flushes on frames {flushes}, "
+        f"where the loop check read the history); flushed every frame {each['writes']}")
+    if not all(same.values()):
+        raise AssertionError(f"batched pose history differs from per-frame flushing: {same}")
+    if set(batched["writes"]) - {0, 2} or each["writes"] != [2] * len(each["writes"]):
+        raise AssertionError("history writes are not 0 between flushes and 2 per flush")
+    log(f"[odometry] the leg's launches: gram {launches['gram']}, deform {launches['deform']}; "
+        f"gram by (P, C): {shapes}")
+
+    # one level of unpacked rows through K1, after the counts are read
+    # (launches that compare a kernel with its plain version do not count)
+    # The tolerance is for rows of unit size (test_pallas.py's normal rows):
+    # each column is scaled by the power of two nearest its largest entry,
+    # which is exact in f32 and leaves the kernel's rounding as it is; the
+    # RGB block's entries reach 1e12 unscaled, where f32's cancellation
+    # alone is 2e-5 of an off-diagonal entry
+    block_err = 0.0
+    for name, M in zip(("icp_rows", "rgb_rows"), _rows_block(seq)):
+        col = M.abs().amax(dim=0).clamp(min=1e-30)
+        M = M * torch.exp2(-torch.round(torch.log2(col)))
+        out = gram.gram(M)
+        ref = gram.gram_reference(M.double())
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **GRAM_TOL)
+        err = float((out.double() - ref).abs().max())
+        block_err = max(block_err, err)
+        log(f"[odometry] K1 on the {name} block {tuple(M.shape)} ({int(M[:, 7].sum().item())} "
+            f"rows kept, columns scaled to unit size): max|err| {err:.3e} against "
+            f"gram_reference in f64, within rtol {GRAM_TOL['rtol']} / atol {GRAM_TOL['atol']}")
+    return dict(launches=launches, shapes=shapes, fps=odo["fps"], ate_mm=1e3 * odo["ate"],
+                block_err=block_err)
+
+
 def phase_deform_synthetic() -> dict:
     """K2 on `_synthetic_deform_case`'s map and graph; then the all-invalid
     graph must pass every row through bit for bit."""
@@ -818,15 +981,22 @@ def _street_sequence() -> StreetSequence:
                           exposure_jitter=0.03)
 
 
-def _example(name: str):
-    """An example entry point of the port (`examples/<name>.py`) as a module."""
+def _repo_module(relpath: str):
+    """A module of this checkout that is not a package module (an example
+    entry point, a test scenario), loaded from its path."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
+    name = os.path.splitext(os.path.basename(relpath))[0]
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _example(name: str):
+    """An example entry point of the port (`examples/<name>.py`) as a module."""
+    return _repo_module(os.path.join("examples", f"{name}.py"))
 
 
 def _render_sets() -> dict:
@@ -2335,6 +2505,9 @@ def run(street: HostRender) -> int:
     del slam["engine"], slam["frames"]
     torch.cuda.empty_cache()
     lap("open loop")
+    odo = phase_odometry()
+    torch.cuda.empty_cache()
+    lap("odometry")
     k2_synth = phase_deform_synthetic()
     lap("K2 synthetic")
     closed = phase_closed_loop()
@@ -2370,13 +2543,14 @@ def run(street: HostRender) -> int:
     lap("train")
     # K1 at the shapes the legs launched it at that phase 1 did not cover,
     # then launches x (time - bound) per shape over the legs
-    legs = {"open": slam["shapes"], "closed": closed["shapes"], "reloc": reloc["shapes"],
+    legs = {"open": slam["shapes"], "odometry": odo["shapes"], "closed": closed["shapes"],
+            "reloc": reloc["shapes"],
             "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"],
             "app": app["shapes"], "train": train["shapes"]}
     seen = sorted({shape for leg in legs.values() for shape in leg}, reverse=True)
     more = phase_gram([shape for shape in seen if shape not in k1["times"]])
     k1["times"].update(more["times"])
-    k1["max_abs_err"] = max(k1["max_abs_err"], more["max_abs_err"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], more["max_abs_err"], odo["block_err"])
     for shape in seen:
         n = sum(leg.get(shape, 0) for leg in legs.values())
         t = k1["times"][shape]
@@ -2396,7 +2570,8 @@ def run(street: HostRender) -> int:
             "route": "cuda",
             "source": "densemonoslam_tpu_torch/csrc/gram.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
-            "launches": slam["launches"] + closed["launches"]["gram"] + reloc["launches"]
+            "launches": slam["launches"] + odo["launches"]["gram"] + closed["launches"]["gram"]
+            + reloc["launches"]
             + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"]
             + app["launches"]["gram"] + train["launches"]["gram"],
             "launches_per_call": g["launches_per_call"],
@@ -2413,7 +2588,8 @@ def run(street: HostRender) -> int:
             "route": "cuda",
             "source": "densemonoslam_tpu_torch/csrc/deform.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/deform.py:201",
-            "launches": closed["launches"]["deform"] + mono["launches"]["deform"]
+            "launches": odo["launches"]["deform"] + closed["launches"]["deform"]
+            + mono["launches"]["deform"]
             + hybrid["launches"] + two["launches"]["deform"] + collab["launches"]["deform"]
             + app["launches"]["deform"] + train["launches"]["deform"],
             "max_abs_err": max(c["max_abs_err"] for c in k2_checks),

@@ -52,6 +52,9 @@ from densemonoslam_tpu_torch.utils.stats import SessionStats
 from densemonoslam_tpu_torch.utils.timer import Stopwatch
 
 _HIST_INITIAL_CAP = 1024
+# indexed writes into the pose histories, two per flush: a run reads this to
+# show that frames between flushes write nothing
+HIST_WRITES = 0
 
 
 @dataclasses.dataclass
@@ -65,12 +68,16 @@ class Frontend:
     step_fn: object
     tick: int = 0
     map_name: str = ""
-    # device pose history [cap,4,4] + per-pose session ticks [cap]: one
-    # device copy per frame into a buffer that doubles when full.  Accepted
+    # device pose history [cap,4,4] + per-pose session ticks [cap]: each
+    # frame's pose is queued on the host and the queue lands in one indexed
+    # write per tensor whenever the history is read (a loop closure, an
+    # export, a checkpoint), into buffers that double when full.  A write
+    # per frame would be a tiny launch serialised with the step.  Accepted
     # loop closures rewrite it through the deformation graph, so exported
     # trajectories reflect closures, not raw odometry.
-    pose_hist: Optional[torch.Tensor] = None
-    hist_times: Optional[torch.Tensor] = None
+    _pose_hist_buf: Optional[torch.Tensor] = None
+    _hist_times_buf: Optional[torch.Tensor] = None
+    _hist_pending: List[Tuple[torch.Tensor, int, float]] = dataclasses.field(default_factory=list)
     ts_log: List[float] = dataclasses.field(default_factory=list)
     stats_log: List[torch.Tensor] = dataclasses.field(default_factory=list)
     stats: SessionStats = dataclasses.field(default_factory=SessionStats)
@@ -101,19 +108,62 @@ class Frontend:
             return []
         return list(zip(self.ts_log, self.pose_hist[:n].cpu().numpy()))
 
+    @property
+    def pose_hist(self) -> Optional[torch.Tensor]:
+        self._flush_hist()
+        return self._pose_hist_buf
+
+    @pose_hist.setter
+    def pose_hist(self, value: Optional[torch.Tensor]) -> None:
+        # queued poses land in the old buffer first, so a replacement never
+        # drops recorded poses silently
+        self._flush_hist()
+        self._pose_hist_buf = value
+
+    @property
+    def hist_times(self) -> Optional[torch.Tensor]:
+        self._flush_hist()
+        return self._hist_times_buf
+
+    @hist_times.setter
+    def hist_times(self, value: Optional[torch.Tensor]) -> None:
+        self._flush_hist()
+        self._hist_times_buf = value
+
     def record_pose(self, stats_row: torch.Tensor, session_tick: int) -> None:
-        """Copy the step's tracked pose (stats rows 13:29) into the history
-        row of this frame, on the device."""
+        """Queue this frame's tracked pose (stats rows 13:29) for the
+        history; touches no tensor."""
         n = len(self.ts_log)  # the caller appends ts_log right after
-        if self.pose_hist is None:
-            dev = stats_row.device
-            self.pose_hist = torch.zeros((_HIST_INITIAL_CAP, 4, 4), dtype=torch.float32, device=dev)
-            self.hist_times = torch.zeros((_HIST_INITIAL_CAP,), dtype=torch.float32, device=dev)
-        if n >= self.pose_hist.shape[0]:
-            self.pose_hist = torch.cat([self.pose_hist, torch.zeros_like(self.pose_hist)])
-            self.hist_times = torch.cat([self.hist_times, torch.zeros_like(self.hist_times)])
-        self.pose_hist[n].copy_(stats_row[stepmod.STAT_POSE0 :].reshape(4, 4))
-        self.hist_times[n].fill_(float(session_tick))
+        self._hist_pending.append((stats_row, n, float(session_tick)))
+
+    def _flush_hist(self) -> None:
+        """Land the queued poses: one indexed write per history tensor."""
+        global HIST_WRITES
+        if not self._hist_pending:
+            return
+        pending, self._hist_pending = self._hist_pending, []
+        dev = pending[0][0].device
+        max_n = max(n for _, n, _ in pending)
+        if self._pose_hist_buf is None:
+            self._pose_hist_buf = torch.zeros((_HIST_INITIAL_CAP, 4, 4), dtype=torch.float32,
+                                              device=dev)
+            self._hist_times_buf = torch.zeros((_HIST_INITIAL_CAP,), dtype=torch.float32,
+                                               device=dev)
+        while max_n >= self._pose_hist_buf.shape[0]:
+            self._pose_hist_buf = torch.cat(
+                [self._pose_hist_buf, torch.zeros_like(self._pose_hist_buf)])
+            self._hist_times_buf = torch.cat(
+                [self._hist_times_buf, torch.zeros_like(self._hist_times_buf)])
+        poses = torch.stack([row[stepmod.STAT_POSE0 :].reshape(4, 4) for row, _, _ in pending])
+        # rows and ticks in one copy, from pinned memory on the card so that
+        # it does not wait for the device (f64 holds both exactly)
+        host = torch.tensor([(n, t) for _, n, t in pending], dtype=torch.float64,
+                            pin_memory=dev.type == "cuda")
+        idx_ticks = host.to(dev, non_blocking=True)
+        idx = idx_ticks[:, 0].long()
+        self._pose_hist_buf[idx] = poses
+        self._hist_times_buf[idx] = idx_ticks[:, 1].float()
+        HIST_WRITES += 2
 
     def finalize_stats(self) -> None:
         """Realise the logged stats vectors into `SessionStats`."""

@@ -440,6 +440,11 @@ def update_ferns(
     return FernLoopState(coder=fs.coder, db=db), code, idx, dis
 
 
+def fern_recovery_pose(fs: FernLoopState, idx: int) -> np.ndarray:
+    """The stored camera-to-world pose of fern keyframe `idx` (host copy)."""
+    return fs.db.poses[idx].cpu().numpy()
+
+
 def verify_recovery(
     frame_pyr: odometry.FramePyramid,
     recovery: torch.Tensor,  # [4,4] candidate camera pose in the map's frame

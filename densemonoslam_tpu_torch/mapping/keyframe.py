@@ -22,6 +22,25 @@ class KeyFrame(NamedTuple):
     depth: torch.Tensor  # [H,W] z-depth
 
 
+def make_keyframe(
+    pose: torch.Tensor,
+    act_intensity: torch.Tensor,
+    act_depth: torch.Tensor,
+    inact_intensity: torch.Tensor | None = None,
+    inact_depth: torch.Tensor | None = None,
+) -> KeyFrame:
+    """The keyframe's composite view: the active maps, with the inactive
+    ones filling the holes (active depth <= 0) where they are given."""
+    if inact_intensity is None:
+        return KeyFrame(pose=pose, intensity=act_intensity, depth=act_depth)
+    hole = act_depth <= 0
+    return KeyFrame(
+        pose=pose,
+        intensity=torch.where(hole, inact_intensity, act_intensity),
+        depth=torch.where(hole, inact_depth, act_depth),
+    )
+
+
 def nid_against_keyframe(
     kf: KeyFrame,
     cur_intensity: torch.Tensor,

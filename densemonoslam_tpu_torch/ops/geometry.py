@@ -1,6 +1,6 @@
-"""Camera-geometry ops: back-projection, normal maps, projection and bounds
-(port of the parts of `densemonoslam_tpu.ops.geometry` the open-loop path
-uses).
+"""Camera-geometry ops: back-projection, normal maps, projection, rigid
+transforms of vertex/normal maps, image sampling and bounds (port of
+`densemonoslam_tpu.ops.geometry`).
 
 Conventions: vertex maps are [H, W, 3] with invalid pixels marked by z == 0;
 normal maps are [H, W, 3] unit vectors, invalid = all zero.
@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
+from densemonoslam_tpu_torch.utils import se3
 
 
 def backproject(depth: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
@@ -57,6 +58,41 @@ def normal_map(vmap: torch.Tensor) -> torch.Tensor:
     for border in (n[0, :], n[-1, :], n[:, 0], n[:, -1]):
         border.fill_(0.0)
     return n
+
+
+def transform_maps(
+    vmap: torch.Tensor, nmap: torch.Tensor, T: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rigidly transform vertex and normal maps [H,W,3] by T [4,4]; invalid
+    pixels (z == 0) stay all zero in both."""
+    valid = (vmap[..., 2] > 0)[..., None]
+    v = se3.transform_points(T, vmap)
+    n = se3.rotate_vectors(T, nmap)
+    return torch.where(valid, v, 0.0), torch.where(valid, n, 0.0)
+
+
+def bilinear_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of img [H,W] at float pixel coords; coordinates
+    are clamped to [0, W - 1.001] x [0, H - 1.001], so the four corners are
+    always inside the image."""
+    H, W = img.shape[0], img.shape[1]
+    u = torch.clamp(u, 0.0, W - 1.001)
+    v = torch.clamp(v, 0.0, H - 1.001)
+    u0 = torch.floor(u).long()
+    v0 = torch.floor(v).long()
+    du = u - u0.to(torch.float32)
+    dv = v - v0.to(torch.float32)
+    top = img[v0, u0] * (1 - du) + img[v0, u0 + 1] * du
+    bot = img[v0 + 1, u0] * (1 - du) + img[v0 + 1, u0 + 1] * du
+    return top * (1 - dv) + bot * dv
+
+
+def nearest_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """img [H,W,...] at the nearest pixel (round half to even), clamped."""
+    H, W = img.shape[0], img.shape[1]
+    ui = torch.clamp(torch.round(u).long(), 0, W - 1)
+    vi = torch.clamp(torch.round(v).long(), 0, H - 1)
+    return img[vi, ui]
 
 
 def in_bounds(u: torch.Tensor, v: torch.Tensor, W: int, H: int, margin: int = 0) -> torch.Tensor:

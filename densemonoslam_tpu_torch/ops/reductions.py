@@ -20,6 +20,7 @@ import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
 from densemonoslam_tpu_torch.ops import geometry
+# `gram` is also `reductions.gram`, as the JAX package names it
 from densemonoslam_tpu_torch.ops.gram import gram
 from densemonoslam_tpu_torch.utils import se3
 
@@ -179,16 +180,18 @@ def sample_model(
     )
 
 
-def _icp_block(p, n_c, n_c_raw, valid_c, inb, smp: ModelSample, dist_thresh, angle_thresh):
-    valid_m = smp.v_m[:, 2] > 0
-    diff = p - smp.v_m
+def _icp_block(p, n_c, n_c_raw, valid_c, inb, v_m, n_m, dist_thresh, angle_thresh):
+    """Point-to-plane rows ``[(p x n_m), n_m, r, 1]``, ``r = n_m . (p - v_m)``,
+    for current points p associated with model points (v_m, n_m)."""
+    valid_m = v_m[:, 2] > 0
+    diff = p - v_m
     dist = torch.linalg.norm(diff, dim=-1)
-    sin_angle = torch.linalg.norm(_cross(n_c, smp.n_m), dim=-1)
+    sin_angle = torch.linalg.norm(_cross(n_c, n_m), dim=-1)
     has_n = torch.linalg.norm(n_c_raw, dim=-1) > 0.5
     mask = valid_c & inb & valid_m & has_n & (dist < dist_thresh) & (sin_angle < angle_thresh)
-    r = torch.sum(smp.n_m * diff, dim=-1)
-    Jw = _cross(p, smp.n_m)
-    M = torch.cat([Jw, smp.n_m, r[:, None], torch.ones_like(r)[:, None]], dim=-1)
+    r = torch.sum(n_m * diff, dim=-1)
+    Jw = _cross(p, n_m)
+    M = torch.cat([Jw, n_m, r[:, None], torch.ones_like(r)[:, None]], dim=-1)
     return M * mask.to(torch.float32)[:, None]
 
 
@@ -225,7 +228,9 @@ def joint_rows_packed(
     u, v, z = geometry.project(p, intr)
     smp = sample_model(model_pack, u, v, bilinear=bilinear)
     inb = smp.inb & (z > 0)
-    M_icp = _icp_block(p, n_c, n_c_raw, valid_c, inb, smp, dist_thresh, angle_thresh)
+    M_icp = _icp_block(
+        p, n_c, n_c_raw, valid_c, inb, smp.v_m, smp.n_m, dist_thresh, angle_thresh
+    )
     r_rgb = smp.i_m - intensity_c.reshape(P)
     gmag2 = smp.gx * smp.gx + smp.gy * smp.gy
     mask_rgb = (
@@ -264,7 +269,9 @@ def joint_rows_frozen(
     du = u - uv0[:, 0]
     dv = v - uv0[:, 1]
     near = (torch.abs(du) <= drift_px) & (torch.abs(dv) <= drift_px)
-    M_icp = _icp_block(p, n_c, n_c_raw, valid_c, inb & near, smp, dist_thresh, angle_thresh)
+    M_icp = _icp_block(
+        p, n_c, n_c_raw, valid_c, inb & near, smp.v_m, smp.n_m, dist_thresh, angle_thresh
+    )
     r_rgb = (smp.i_m + smp.gx * du + smp.gy * dv) - i_c
     gmag2 = smp.gx * smp.gx + smp.gy * smp.gy
     mask_rgb = (
@@ -332,3 +339,97 @@ def so3_rows_packed(
     r = smp.i_m - intensity_c.reshape(H * W)
     mask = smp.inb & (z > 0) & (torch.abs(r) < max_residual)
     return _so3_block(rd, r, mask, smp.gx, smp.gy, intr)
+
+
+# ---------------------------------------------------------------------------
+# Per-pixel rows with separate samples of each model map: the reference's own
+# row formulation (ICP, RGB and SO3 reductions), from which the packed and
+# frozen builders above are derived; the oracle the tests differentiate.
+# ---------------------------------------------------------------------------
+
+def icp_rows(
+    vmap_c: torch.Tensor,
+    nmap_c: torch.Tensor,
+    vmap_m: torch.Tensor,
+    nmap_m: torch.Tensor,
+    A: torch.Tensor,
+    intr: CameraIntrinsics,
+    dist_thresh: float = ICP_DIST_THRESH,
+    angle_thresh: float = ICP_ANGLE_SIN_THRESH,
+) -> torch.Tensor:
+    """Point-to-plane ICP rows [H*W, 8] with projective data association:
+    each current vertex goes into the model frame by A, is projected, and
+    meets the model vertex and normal at the nearest pixel; the distance and
+    normal-angle gates zero the rows that fail them.  All maps [H, W, 3]."""
+    H, W, _ = vmap_c.shape
+    v_c = vmap_c.reshape(-1, 3)
+    n_c_raw = nmap_c.reshape(-1, 3)
+    p = se3.transform_points(A, v_c)
+    n_c = se3.rotate_vectors(A, n_c_raw)
+    u, v, z = geometry.project(p, intr)
+    inb = geometry.in_bounds(u, v, W, H, margin=1) & (z > 0)
+    v_m = geometry.nearest_sample(vmap_m, u, v)
+    n_m = geometry.nearest_sample(nmap_m, u, v)
+    return _icp_block(p, n_c, n_c_raw, v_c[:, 2] > 0, inb, v_m, n_m, dist_thresh, angle_thresh)
+
+
+def rgb_rows(
+    vmap_c: torch.Tensor,
+    intensity_c: torch.Tensor,
+    intensity_m: torch.Tensor,
+    grad_mx: torch.Tensor,
+    grad_my: torch.Tensor,
+    A: torch.Tensor,
+    intr: CameraIntrinsics,
+    depth_m: torch.Tensor | None = None,
+    min_grad: float = RGB_MIN_GRAD,
+    max_residual: float = 255.0,
+    occlusion_thresh: float = 0.15,
+) -> torch.Tensor:
+    """Photometric rows [H*W, 8] ``[(p x g3), g3, r, 1]`` for
+    ``r = I_m(pi(A v_c)) - I_c``: model intensity and Sobel gradients sampled
+    bilinearly at each warped current pixel.  With `depth_m` ([H,W] model
+    z-depth), pixels whose warped depth is more than `occlusion_thresh` from
+    the model's are gated out as occlusions."""
+    H, W, _ = vmap_c.shape
+    v_c = vmap_c.reshape(-1, 3)
+    p = se3.transform_points(A, v_c)
+    u, v, z = geometry.project(p, intr)
+    inb = geometry.in_bounds(u, v, W, H, margin=1) & (z > 0)
+    gx = geometry.bilinear_sample(grad_mx, u, v)
+    gy = geometry.bilinear_sample(grad_my, u, v)
+    r = geometry.bilinear_sample(intensity_m, u, v) - intensity_c.reshape(-1)
+    mask = (
+        (v_c[:, 2] > 0) & inb
+        & (gx * gx + gy * gy > min_grad * min_grad)
+        & (torch.abs(r) < max_residual)
+    )
+    if depth_m is not None:
+        z_m = geometry.nearest_sample(depth_m, u, v)
+        mask = mask & (z_m > 0) & (torch.abs(z - z_m) < occlusion_thresh)
+    return _rgb_block(p, r, mask, gx, gy, intr)
+
+
+def so3_rows(
+    intensity_c: torch.Tensor,
+    intensity_m: torch.Tensor,
+    grad_mx: torch.Tensor,
+    grad_my: torch.Tensor,
+    R: torch.Tensor,
+    intr: CameraIntrinsics,
+    min_grad: float = 0.0,
+    max_residual: float = 255.0,
+) -> torch.Tensor:
+    """Rotation-only photometric rows [H*W, 8] ``[Jw (3), r, 0, 0, 0, 1]``:
+    each unit-z ray is rotated by R and projected (the homography warp
+    between the coarsest levels); G[:3,:3] = JtJ, G[:3,3] = Jtr,
+    G[3,3] = sum r^2, G[7,7] = count."""
+    H, W = intensity_c.shape
+    rd = torch.sum(R * unit_rays(H, W, intr, intensity_c.device)[:, None, :], dim=-1)
+    u, v, z = geometry.project(rd, intr)
+    inb = geometry.in_bounds(u, v, W, H, margin=1) & (z > 0)
+    gx = geometry.bilinear_sample(grad_mx, u, v)
+    gy = geometry.bilinear_sample(grad_my, u, v)
+    r = geometry.bilinear_sample(intensity_m, u, v) - intensity_c.reshape(-1)
+    mask = inb & (gx * gx + gy * gy >= min_grad * min_grad) & (torch.abs(r) < max_residual)
+    return _so3_block(rd, r, mask, gx, gy, intr)

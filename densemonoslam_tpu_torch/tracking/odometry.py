@@ -68,6 +68,11 @@ def model_pyramid_from_maps(intensity, vmap, nmap, grad_x, grad_y) -> ModelPyram
     )
 
 
+def model_pyramid_from_frame(pyr: FramePyramid) -> ModelPyramid:
+    """A live frame's pyramid as the tracking model (frame-to-frame mode)."""
+    return model_pyramid_from_maps(pyr.intensity, pyr.vmap, pyr.nmap, pyr.grad_x, pyr.grad_y)
+
+
 def build_model_pyramid(
     intensity: torch.Tensor, vmap0: torch.Tensor, nmap0: torch.Tensor, levels: int
 ) -> ModelPyramid:

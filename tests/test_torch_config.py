@@ -65,7 +65,7 @@ def test_port_never_imports_jax():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "examples = sorted(Path('examples').glob('torch_*.py'))\n"
-        "assert len(examples) == 4, examples\n"
+        "assert len(examples) == 6, examples\n"
         "for path in examples:\n"
         "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -93,8 +93,8 @@ def test_port_disables_tf32():
 def test_port_runs_without_the_jax_package(tmp_path):
     """The port and its example entry points, copied into a tree that holds
     no `densemonoslam_tpu`, with only that tree on the path: both packaged
-    depth nets load from the port's own files and predict, and one CPU train
-    step runs.  A module that read a file of the JAX package would fail
+    depth nets load from the port's own files and predict, one CPU train
+    step runs, and the synthetic twin tracks three frames frame to frame.  A module that read a file of the JAX package would fail
     here, where an import check cannot see it."""
     tree = tmp_path / "tree"
     ignore = shutil.ignore_patterns("__pycache__")
@@ -124,6 +124,11 @@ def test_port_runs_without_the_jax_package(tmp_path):
         "rgb = torch.from_numpy(gen.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32))\n"
         "loss = step(rgb, torch.from_numpy(gen.uniform(0.5, 10, (2, 48, 64)).astype(np.float32)))\n"
         "assert bool(torch.isfinite(loss))\n"
+        "spec = importlib.util.spec_from_file_location('s', 'examples/torch_run_synthetic.py')\n"
+        "s = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(s)\n"
+        "odo = s.run_odometry(s.sequence(20), 3, 'cpu')\n"
+        "assert odo['failures'] == 0 and odo['ate'] < 0.02, odo['ate']\n"
         "assert not [k for k in sys.modules\n"
         "            if k == 'jax' or k.startswith(('jax.', 'densemonoslam_tpu.'))]\n"
         "print('ok')\n"

@@ -1,8 +1,9 @@
 """The port's example entry points (`examples/torch_*.py`) on the CPU: the
 synthetic trainer as a user starts it, the street trainer's loop, the KITTI
 converter against the JAX package's `examples/convert_kitti.py` on the same
-directory, and the multi-host launcher.  Every subprocess has its own time
-limit."""
+directory, the multi-host launcher, the synthetic run in both modes (its
+frame-to-frame odometry against the JAX package's functions) and the
+collaborative UDP session.  Every subprocess has its own time limit."""
 
 import importlib.util
 import json
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from densemonoslam_tpu.eval import ate_rmse as jate_rmse
+from densemonoslam_tpu.io.synthetic import SyntheticSequence as JSyntheticSequence
 from densemonoslam_tpu.models.depthnet import DepthPredictor as JDepth
+from densemonoslam_tpu.tracking import odometry as jodo
 from densemonoslam_tpu_torch.config import CameraConfig, CameraIntrinsics, FrameResolution
 from densemonoslam_tpu_torch.io.datasets import KittiOdometryReader
 from densemonoslam_tpu_torch.io.klg import KlgReader
@@ -169,3 +173,67 @@ def test_run_multihost_two_hosts():
     assert "host 0 done (2-camera session)" in proc.stdout
     assert "host 1 done (2-camera session)" in proc.stdout
     assert len(views[0]) == 2 and views[0] == views[1], views
+
+
+def _number(text: str, before: str, after: str) -> float:
+    return float(text.split(before, 1)[1].split(after, 1)[0])
+
+
+def test_run_synthetic_odometry_only():
+    """`torch_run_synthetic.py --odometry-only --frames 20 --platform cpu`
+    tracks every frame and exits 0 (ATE < 20 mm); its ATE lies within
+    0.5 mm of the JAX package's frame-to-frame chain on the same frames,
+    called in this process as `examples/run_synthetic.py` calls it (0.5 mm:
+    the per-pose bound of the 20-frame chain in `test_torch_tracking.py`,
+    f32 GN in two summation orders compounded over 19 frames).  20
+    frames, not fewer: the orbit spans the sequence, so with 8 frames the
+    frames are ~45 degrees apart and both packages fail every pair."""
+    import jax.numpy as jnp
+
+    frames = 20
+    proc = _run("torch_run_synthetic.py", "--odometry-only", "--frames", frames,
+                "--platform", "cpu", timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "failures: 0" in proc.stdout, proc.stdout
+    ate_mm = _number(proc.stdout, "ATE: ", " mm")
+    seq = JSyntheticSequence(num_frames=frames, radius=0.35, max_angle=0.3)
+    intr = seq.camera.intrinsics
+    poses, prev = [seq.gt_pose(0)], None
+    for i in range(frames):
+        rgb, depth = seq.frame(i)
+        cur = jodo.build_frame_pyramid(jnp.asarray(rgb), jnp.asarray(depth), intr, 3)
+        if prev is not None:
+            res = jodo.track(jodo.model_pyramid_from_frame(prev), cur,
+                             jnp.eye(4, dtype=jnp.float32), intr)
+            poses.append(poses[-1] @ np.asarray(res.A))
+        prev = cur
+    ref_mm = 1e3 * jate_rmse(poses, [seq.gt_pose(i) for i in range(frames)])
+    assert abs(ate_mm - ref_mm) < 0.5, (ate_mm, ref_mm)
+
+
+def test_run_synthetic_engine_exports(tmp_path):
+    """The full-engine mode with `--out`: exit 0 (ATE < 20 mm) and the four
+    exports, the trajectory one row per frame."""
+    out = tmp_path / "out"
+    proc = _run("torch_run_synthetic.py", "--frames", 20, "--platform", "cpu", "--out", out,
+                timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert _number(proc.stdout, "ATE: ", " mm") < 20.0
+    assert np.loadtxt(out / "synthetic.freiburg").shape == (20, 8)
+    assert {p.name for p in out.iterdir()} == {
+        "synthetic.freiburg", "map.ply", "timings.csv", "run.stats"}
+
+
+def test_run_collaborative_merges():
+    """`torch_run_collaborative.py --platform cpu`: both UDP senders' 14
+    frames processed, the maps merge (exit 0), and camB's pose relative to
+    camA's after the merge is the true one (frames 13 and 19 of the orbit)
+    within 1 cm."""
+    proc = _run("torch_run_collaborative.py", "--platform", "cpu", timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "*** maps merged after" in proc.stdout
+    assert "frames: {'camA': 14, 'camB': 14}; maps: 1;" in proc.stdout
+    rel = np.array(proc.stdout.split("translation: [", 1)[1].split("]", 1)[0].split(), float)
+    seq = JSyntheticSequence(num_frames=40, radius=0.35, max_angle=0.3)
+    truth = (np.linalg.inv(seq.gt_pose(13)) @ seq.gt_pose(19))[:3, 3]
+    np.testing.assert_allclose(rel, truth, atol=0.01)

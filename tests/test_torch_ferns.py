@@ -144,3 +144,29 @@ def test_update_ferns_grows_then_evicts_like_reference(seq):
     _db_equal(back.db, jfs.db)
     for name, t, j in zip(tf.FernCoder._fields, back.coder, jfs.coder):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+
+
+def test_fern_recovery_pose_matches_reference(seq):
+    """`loops.fern_recovery_pose` reads a stored keyframe pose back to the
+    host, so it is exact: one fern database, filled by both packages from
+    the same frames, read at every slot."""
+    jcfg, tcfg = JCfg(depth_cutoff=8.0, fern_thresh=0.05), TCfg(depth_cutoff=8.0, fern_thresh=0.05)
+    jfs = jloops.make_fern_state(seq.camera, jcfg, capacity=8)
+    tfs = tloops.make_fern_state(seq.camera, tcfg, capacity=8, device="cpu")
+    for i in range(0, 40, 7):
+        rgb, depth = seq.frame(i)
+        inten = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]).astype(np.float32)
+        pose = seq.gt_pose(i).astype(np.float32)
+        jfs = jloops.update_ferns(jfs, jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(inten),
+                                  jnp.asarray(pose), i, 0.05, factor=8)[0]
+        tfs = tloops.update_ferns(tfs, torch.from_numpy(rgb), torch.from_numpy(depth),
+                                  torch.from_numpy(inten), torch.from_numpy(pose), i, 0.05,
+                                  factor=8)[0]
+    n = int(tfs.db.count)
+    assert n == int(jfs.db.count) >= 3
+    for idx in range(n):
+        t, j = tloops.fern_recovery_pose(tfs, idx), jloops.fern_recovery_pose(jfs, idx)
+        assert isinstance(t, np.ndarray) and t.shape == (4, 4)
+        np.testing.assert_array_equal(t, j, err_msg=str(idx))
+    np.testing.assert_array_equal(tloops.fern_recovery_pose(tfs, n - 1), seq.gt_pose(35).astype(
+        np.float32))

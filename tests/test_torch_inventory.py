@@ -1,0 +1,191 @@
+"""The port's inventory: every public name of the JAX package has its
+counterpart in `densemonoslam_tpu_torch/`, or a stated reason why it has
+none, and every example entry point has its `torch_` twin.
+
+Each module of `densemonoslam_tpu/` is parsed with `ast` (nothing of it is
+imported, so jax is not needed).  For each public top-level function and
+class, and each public method of a public class (flax's `__call__`
+included), the port's module of the same path must define the same name, or
+`COUNTERPARTS` must map it to the port's name for it, or `NO_COUNTERPART`
+must give a reason.  One case per module, so a missing name fails only its
+module's case."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+JAX_PKG = REPO / "densemonoslam_tpu"
+PORT = REPO / "densemonoslam_tpu_torch"
+EXAMPLES = REPO / "examples"
+
+# JAX module -> {JAX name: "port module:port name"}: the same job under
+# another name or in another module.  A name the port's module imports counts
+# as its own (`ops/reductions.py` imports K1's wrapper `ops/gram.py:gram`, so
+# `reductions.gram` resolves).
+COUNTERPARTS = {
+    "ops/histogram.py": {
+        "joint_histogram_matmul": "ops/histogram.py:joint_histogram",
+        "joint_histogram_scatter": "ops/histogram.py:joint_histogram",
+    },
+    "ops/pallas/gram.py": {"gram_pallas": "ops/gram.py:gram"},
+    "ops/pallas/deform.py": {
+        "deform_soa_pallas": "ops/deform.py:deform_map",
+        "deform_points_pallas": "mapping/deformation.py:deform_points",
+    },
+    "models/onnx_import.py": {"onnx_conv_to_flax": "models/onnx_import.py:torch_conv_to_flax"},
+    "models/depthnet.py": {
+        "ConvBlock.__call__": "models/depthnet.py:ConvBlock.forward",
+        "DepthNet.__call__": "models/depthnet.py:DepthNet.forward",
+    },
+}
+
+# JAX module -> {JAX name: why the port has none}.  Private names appear
+# here only where they are a job of their own that the port does otherwise.
+NO_COUNTERPART = {
+    "utils/jax_cache.py": {
+        "enable": "XLA's persistent compilation cache; the port compiles no XLA program, and "
+                  "its kernels are built once per source hash (ops/cuda_build.py)",
+    },
+    "parallel/mesh.py": {
+        "cam_sharding": "a jax NamedSharding over the camera axis; torch has no sharding type: "
+                        "a rank holds its own cameras",
+        "replicated": "a jax NamedSharding with no axis; torch has no sharding type",
+    },
+    "models/depthnet.py": {
+        "DepthPredictor.init_for": "flax initialises its parameters from an input shape; a "
+                                   "torch module has them from construction",
+    },
+    "mapping/deformation.py": {
+        "_on_tpu": "picks the Pallas kernel on a TPU; the port picks K2 by the tensor's device "
+                   "(ops/deform.py:deform_map)",
+    },
+    "loops.py": {
+        "_make_local_loop": "a jax.jit factory cached per shape; the port runs the local loop "
+                            "eagerly (loops.py:try_local_loop)",
+        "_make_hybrid_loop": "a jax.jit factory cached per shape; the port runs the hybrid loop "
+                             "eagerly (loops.py:apply_hybrid_loop)",
+    },
+    "engine.py": {
+        "_intensity_and_depth": "one jitted program for luma and metric depth; the port's step "
+                                "does both as eager ops",
+        "_hist_append": "the jitted history scatter; the port's Frontend._flush_hist does it "
+                        "as one indexed write per tensor",
+    },
+}
+
+# JAX examples with no twin: TPU profiling scripts.  chip_smoke.py and
+# tools/ time the port on the card.
+PROFILING = {"bench_ablate.py", "xbench.py"}
+
+
+def _public_names(path: Path) -> set:
+    """Public top-level functions and classes, and the public methods (and
+    `__call__`) of public classes, as `name` / `Class.method`."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            continue
+        if node.name.startswith("_"):
+            continue
+        out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)) and (
+                        not sub.name.startswith("_") or sub.name == "__call__"):
+                    out.add(f"{node.name}.{sub.name}")
+    return out
+
+
+def _defined(path: Path) -> set:
+    """Every name a module binds at top level (definitions, assignments,
+    imports) and every attribute its classes define (methods, properties,
+    fields), as `name` / `Class.attr`."""
+    if not path.exists():
+        return set()
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                for sub in node.body:
+                    if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                        out.add(f"{node.name}.{sub.name}")
+                    elif isinstance(sub, ast.AnnAssign) and isinstance(sub.target, ast.Name):
+                        out.add(f"{node.name}.{sub.target.id}")
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update(a.asname or a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return out
+
+
+def _modules() -> list:
+    return sorted(p.relative_to(JAX_PKG).as_posix() for p in JAX_PKG.rglob("*.py"))
+
+
+def _resolves(target: str) -> bool:
+    mod, name = target.split(":")
+    return name in _defined(PORT / mod)
+
+
+@pytest.mark.parametrize("module", _modules())
+def test_every_public_name_has_a_counterpart(module):
+    port_names = _defined(PORT / module)
+    mapped = COUNTERPARTS.get(module, {})
+    reasons = NO_COUNTERPART.get(module, {})
+    missing = []
+    for name in sorted(_public_names(JAX_PKG / module)):
+        if name in port_names or name in reasons:
+            continue
+        if name in mapped and _resolves(mapped[name]):
+            continue
+        missing.append(name)
+    assert not missing, f"{module}: no counterpart in {PORT.name}/{module} for {missing}"
+
+
+def test_tables_name_real_gaps():
+    """Every entry of the two tables names a name the JAX module defines and
+    its port module does not; a mapped counterpart exists; a reason is one
+    line of text."""
+    for table in (COUNTERPARTS, NO_COUNTERPART):
+        for module, names in table.items():
+            jax_names = _defined(JAX_PKG / module)
+            port_names = _defined(PORT / module)
+            for name, value in names.items():
+                assert name in jax_names, f"{module}:{name} is not in the JAX package"
+                assert name not in port_names, f"{module}:{name} is in the port: drop the entry"
+                assert value and "\n" not in value
+    for module, names in COUNTERPARTS.items():
+        for name, target in names.items():
+            assert _resolves(target), f"{module}:{name} -> {target} does not exist"
+
+
+def _example_names() -> list:
+    return sorted(p.name for p in EXAMPLES.glob("*.py") if not p.name.startswith("torch_"))
+
+
+@pytest.mark.parametrize("example", _example_names())
+def test_every_example_has_a_twin(example):
+    """Each JAX example has its `examples/torch_<name>` twin, or is a TPU
+    profiling script (`profile_*.py`, `bench_ablate.py`, `xbench.py`)."""
+    if example.startswith("profile_") or example in PROFILING:
+        return
+    assert (EXAMPLES / f"torch_{example}").exists(), f"examples/{example} has no torch_ twin"
+
+
+def test_port_and_twins_import_no_jax():
+    """No module of the port and no twin names jax, flax, optax or the JAX
+    package in an import statement."""
+    banned = ("jax", "flax", "optax", "densemonoslam_tpu")
+    for path in [*PORT.rglob("*.py"), *EXAMPLES.glob("torch_*.py")]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path.relative_to(REPO)} imports {name}"

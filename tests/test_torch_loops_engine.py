@@ -1,25 +1,21 @@
 """Closed-loop runs of the PyTorch port's engine (CPU), held to the bounds of
 the JAX package's tests on the same fixtures:
 `tests/test_loops.py::test_loop_closure_corrects_whole_trajectory` and
-`tests/test_reactivation.py::test_closure_keeps_active_set_inside_window`."""
+`tests/test_reactivation.py::test_closure_keeps_active_set_inside_window`;
+and the engine's batched pose history against a flush after every frame."""
 
 import numpy as np
 import torch
 
+from densemonoslam_tpu_torch import engine as engmod
+from densemonoslam_tpu_torch import step as stepmod
 from densemonoslam_tpu_torch.config import EngineConfig
 from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
+from torch_closed_loop import CLOSED, DRIFT, history_run
 
 torch.set_num_threads(2)
-
-CLOSED = dict(
-    max_surfels=1 << 18, depth_cutoff=8.0, depth_factor=1.0, nid_keyframing=False,
-    open_loop=False, loop_check_interval=5, time_delta=50, deform_graph_sample_rate=600,
-    max_deform_nodes=128, loop_min_inactive_frac=0.05, loop_cons_err_thresh=0.02,
-    confidence_threshold=1.0,
-)
-DRIFT = np.array([0.08, 0.0, 0.0], np.float32)
 
 
 def test_loop_closure_corrects_whole_trajectory(tmp_path):
@@ -114,3 +110,48 @@ def test_closure_keeps_active_set_inside_window():
     eng._compact_now(eng.backend_of("cam0"))
     n_active, overflow = _active_overflow(fe.state, eng.global_tick, cfg.time_delta, window)
     assert overflow == 0, (n_active, overflow)
+
+
+def test_batched_pose_history_matches_per_frame_flush(tmp_path):
+    """The batched history gives the trajectory (tracked frames, injected
+    frames and the loop closure's rewrite through the deformation graph),
+    the history's ticks and every checkpoint array bit for bit as a flush
+    after every frame; frames with no reader of the history write nothing
+    to it, and a flush is one indexed write per history tensor."""
+    batched = history_run(str(tmp_path), "batched", flush_every_frame=False, device="cpu")
+    each = history_run(str(tmp_path), "each", flush_every_frame=True, device="cpu")
+    assert batched["n"] == each["n"] > 10
+    np.testing.assert_array_equal(batched["traj"], each["traj"])
+    np.testing.assert_array_equal(batched["ticks"], each["ticks"])
+    assert batched["ckpt"].keys() == each["ckpt"].keys()
+    for k in batched["ckpt"]:
+        np.testing.assert_array_equal(batched["ckpt"][k], each["ckpt"][k], err_msg=k)
+    assert each["writes"] == [2] * each["n"]
+    # only the loop-check frames read the history (the closure's rewrite)
+    assert sum(batched["writes"]) < sum(each["writes"])
+    assert set(batched["writes"]) <= {0, 2} and batched["writes"][:4] == [0, 0, 0, 0]
+
+
+def test_record_pose_touches_no_tensor():
+    """Between flushes `record_pose` only queues: the history tensors keep
+    their storage and values and the write count stands still; the next
+    read lands the queue in one write per tensor."""
+    seq = SyntheticSequence(num_frames=40, radius=0.35, max_angle=0.3)
+    eng = Engine(seq.camera, EngineConfig(max_surfels=1 << 16), device="cpu")
+    fe = eng.frontend("cam0")
+    eng.process_frame("cam0", *seq.frame(0), 0.0, in_pose=seq.gt_pose(0).astype(np.float32))
+    hist, ticks = fe.pose_hist, fe.hist_times
+    hist0, ticks0 = hist.clone(), ticks.clone()
+    before = engmod.HIST_WRITES
+    for k in range(1, 6):
+        row = torch.arange(stepmod.N_STATS_TOTAL, dtype=torch.float32) + k
+        fe.record_pose(row, 10 + k)
+        fe.ts_log.append(float(k))
+    assert engmod.HIST_WRITES == before
+    assert fe._pose_hist_buf is hist and fe._hist_times_buf is ticks
+    assert torch.equal(hist, hist0) and torch.equal(ticks, ticks0)
+    assert fe.pose_hist is hist and engmod.HIST_WRITES == before + 2
+    for k in range(1, 6):
+        expect = torch.arange(stepmod.STAT_POSE0, stepmod.N_STATS_TOTAL, dtype=torch.float32) + k
+        assert torch.equal(hist[k].reshape(-1), expect)
+        assert float(ticks[k]) == 10 + k

@@ -209,6 +209,31 @@ def test_nid_gate_matches_reference(world):
                                    np.asarray(jkf.nid_score(jr[0], jr[1], 0.7)), atol=1e-5)
 
 
+@pytest.mark.parametrize("with_inactive", [False, True])
+def test_make_keyframe_matches_reference(with_inactive):
+    """The keyframe composite is a selection, so it is exact: the active
+    maps, with the inactive ones filling the holes (active depth <= 0, here
+    zeros and negative values) where they are given."""
+    rng = np.random.default_rng(11)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = rng.normal(size=3)
+    act_i = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    act_d = rng.uniform(0.3, 8.0, (H, W)).astype(np.float32)
+    holes = rng.random((H, W))
+    act_d[holes < 0.3] = 0.0
+    act_d[holes > 0.95] = -1.0
+    inact = ((rng.uniform(0, 255, (H, W)).astype(np.float32),
+              rng.uniform(0.3, 8.0, (H, W)).astype(np.float32)) if with_inactive else ())
+    jk = jkf.make_keyframe(*(jnp.asarray(x) for x in (pose, act_i, act_d, *inact)))
+    tk = tkf.make_keyframe(*(_t(x) for x in (pose, act_i, act_d, *inact)))
+    for name, t, j in zip(tkf.KeyFrame._fields, tk, jk):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    if with_inactive:
+        np.testing.assert_array_equal(tk.depth.numpy()[holes < 0.3], inact[1][holes < 0.3])
+    else:
+        np.testing.assert_array_equal(tk.depth.numpy(), act_d)
+
+
 @pytest.mark.parametrize("bins,vmax", [(64, 256.0), (500, 8.0)])
 def test_joint_histogram_counts_exact(rng, bins, vmax):
     a = rng.uniform(-0.1 * vmax, 1.1 * vmax, 5000).astype(np.float32)
