@@ -91,7 +91,15 @@ Phases (any failure raises, so the exit code is not 0):
    `DepthPredictor.load` in the monocular engine (`tests/test_depthnet.py`'s
    10 RGB-only frames, through K1); ms per train step at the trainers'
    three shapes, steps/s, peak device memory;
-15. K1 at the other shapes the legs launched it at, and per shape its
+15. the measurement entry points: `torch_bench.py`'s legs that no phase
+   above runs, at 30 timed frames each (the open loop beside
+   relocalisation, the 1024x320 orbit, the default configuration, the
+   1<<25-row map; fps, ATE, peak device memory), then
+   `examples/torch_profile_stages.py` at 640x480 (wall and device ms per
+   stage), then K2 against its plain version on
+   `examples/torch_profile_closure.py`'s map (1<<22 rows, 2,097,152 live)
+   with the graph its closure applies;
+16. K1 at the other shapes the legs launched it at, and per shape its
    launches over the legs times (device time - bound).
 
 Each leg sets every launch count to 0 just before it and reads the counts
@@ -109,6 +117,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import multiprocessing
 import os
 import socket
@@ -2473,6 +2482,99 @@ def phase_train(frames: dict, smi: str) -> dict:
                 launches=mono["launches"], shapes=mono["shapes"])
 
 
+# ---------------------------------------------------------------------------
+# the measurement entry points: torch_bench's legs the other phases do not
+# run, the per-stage profile of the step and K2 on profile_closure's map
+# ---------------------------------------------------------------------------
+
+# timed frames of each torch_bench leg here: BENCH_FRAMES's default, so that
+# the orbit is the headline's (the orbit spans warm-up + timed frames; at 10
+# timed frames its steps are 2.4x as long and the open loop's ATE is 89 mm)
+BENCH_TIMED = 30
+BENCH_ATE_MM = 10.0  # tests/test_engine.py's bound, on the headline orbit's legs
+
+
+def _bench_leg(tb, name: str, *args, **kw) -> dict:
+    """One `torch_bench._run_slam` leg on the card: fps, ATE, peak device
+    memory; every frame tracked and its stats finite."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fps, ate_mm, eng, _, _ = tb._run_slam(*args, **kw, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    stats = torch.stack(eng.frontends["cam0"].stats_log).cpu().numpy()
+    surfels = eng.surfel_count("cam0")
+    log(f"[bench] {name}: {fps:.2f} fps over {args[2]} timed frames, ATE {ate_mm:.4f} mm, "
+        f"surfels {surfels}, peak device memory {peak / 2**20:.1f} MiB")
+    if not np.isfinite(stats).all():
+        raise AssertionError(f"bench leg {name}: non-finite stats")
+    if not (stats[:, stepmod.STAT_TRACK_OK] == 1.0).all():
+        raise AssertionError(f"bench leg {name}: tracking lost at frames "
+                             f"{np.nonzero(stats[:, stepmod.STAT_TRACK_OK] != 1.0)[0]}")
+    return dict(fps=fps, ate_mm=ate_mm, peak=peak, surfels=surfels)
+
+
+def phase_bench() -> dict:
+    """`torch_bench.py`'s legs that no other phase runs, at `BENCH_TIMED`
+    timed frames (tracking and finite stats on every leg, ATE within
+    `BENCH_ATE_MM` on the headline orbit's): the open loop beside
+    relocalisation (the overhead), the 1024x320 orbit, the default
+    configuration and the 1<<25-row map; then
+    `examples/torch_profile_stages.py` at 640x480 (every stage timed; a
+    device time the profiler lost is NaN and logged); then K2 against its
+    plain version on `examples/torch_profile_closure.py`'s map (1<<22 rows,
+    half of the 2,097,152 live ones inactive) with the graph that profile's
+    closure applies."""
+    tb = _repo_module("torch_bench.py")
+    reset_counts()  # count only this path's launches from here
+    legs = {
+        "open loop": _bench_leg(tb, "open loop", 640, 480, BENCH_TIMED, 4, dict(open_loop=True)),
+        "relocalisation": _bench_leg(tb, "relocalisation", 640, 480, BENCH_TIMED, 4,
+                                     dict(open_loop=True, relocalisation=True)),
+        "1024x320": _bench_leg(tb, "1024x320", 1024, 320, BENCH_TIMED, 4, dict(open_loop=True),
+                               intr=CameraIntrinsics(707.09, 707.09, 601.89, 183.11)),
+        "default config": _bench_leg(tb, "default config", 640, 480, BENCH_TIMED, 4,
+                                     dict(open_loop=True),
+                                     base_cfg=dict(pyramid_levels=3, track_row_stride=1)),
+        "1<<25 capacity": _bench_leg(tb, "1<<25 capacity", 640, 480, BENCH_TIMED, 4,
+                                     dict(open_loop=True, max_surfels=1 << 25)),
+    }
+    overhead = 100.0 * (1.0 - legs["relocalisation"]["fps"] / legs["open loop"]["fps"])
+    log(f"[bench] relocalisation overhead {overhead:.1f}% of the open loop's fps "
+        f"(bench.py's claim: < 10%); 1<<25 rows against 1<<20: "
+        f"{legs['1<<25 capacity']['fps']:.2f} / {legs['open loop']['fps']:.2f} fps, ATE "
+        f"{legs['1<<25 capacity']['ate_mm']:.6f} / {legs['open loop']['ate_mm']:.6f} mm")
+    for name in ("open loop", "relocalisation", "1<<25 capacity"):
+        if not legs[name]["ate_mm"] < BENCH_ATE_MM:
+            raise AssertionError(f"bench leg {name}: ATE {legs[name]['ate_mm']:.3f} mm")
+    t0 = time.perf_counter()
+    stages = _example("torch_profile_stages").main(["--width", "640", "--height", "480"])
+    log(f"[bench] torch_profile_stages at 640x480: {time.perf_counter() - t0:.1f} s")
+    lost = [k for k, v in stages["device_ms"].items() if math.isnan(v)]
+    if lost:
+        log(f"[bench] torch_profile_stages: the profiler kept no device event of {lost}")
+    device = [v for v in stages["device_ms"].values() if not math.isnan(v)]
+    if not all(v > 0 for v in (*stages["wall_ms"].values(), *device)):
+        raise AssertionError(f"torch_profile_stages: a stage without time: {stages}")
+    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)  # before K2's checks
+    shapes = by_shape()
+    log(f"[bench] launches: gram {launches['gram']}, deform {launches['deform']}; "
+        f"gram by (P, C): {shapes}")
+    if launches["gram"] == 0:
+        raise AssertionError("the bench legs launched no gram kernel")
+    pc = _example("torch_profile_closure")
+    state = pc.build_state(device="cuda")
+    cfg = pc.config()
+    intr = CameraIntrinsics.default_for(FrameResolution(pc.W, pc.H))
+    graph = pc.closure_graph(state, cfg, intr)
+    n_live = int(state.map_count)
+    k2 = [_deform_checks(f"profile_closure map ({n_live} live), its closure's "
+                         f"{int(graph.valid.sum())}-node graph",
+                         state.map_data, state.map_count, graph)]
+    return dict(legs=legs, overhead=overhead, stages=stages, k2=k2, launches=launches,
+                shapes=shapes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -2541,12 +2643,15 @@ def run(street: HostRender) -> int:
     train = phase_train(street.host_frames("train"), smi)
     torch.cuda.empty_cache()
     lap("train")
+    bench = phase_bench()
+    torch.cuda.empty_cache()
+    lap("bench")
     # K1 at the shapes the legs launched it at that phase 1 did not cover,
     # then launches x (time - bound) per shape over the legs
     legs = {"open": slam["shapes"], "odometry": odo["shapes"], "closed": closed["shapes"],
             "reloc": reloc["shapes"],
             "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"],
-            "app": app["shapes"], "train": train["shapes"]}
+            "app": app["shapes"], "train": train["shapes"], "bench": bench["shapes"]}
     seen = sorted({shape for leg in legs.values() for shape in leg}, reverse=True)
     more = phase_gram([shape for shape in seen if shape not in k1["times"]])
     k1["times"].update(more["times"])
@@ -2562,7 +2667,7 @@ def run(street: HostRender) -> int:
     g = k1["times"][GRAM_SHAPES[0]]
     # every map K2 was held against its plain version on; the entry's
     # times are those of the closed-loop map, where most of its launches are
-    k2_checks = [k2_synth, k2_real, mono["k2"], hybrid["k2"]]
+    k2_checks = [k2_synth, k2_real, mono["k2"], hybrid["k2"], *bench["k2"]]
     log(smi)
     print(json.dumps({"kernels": [
         {
@@ -2573,7 +2678,7 @@ def run(street: HostRender) -> int:
             "launches": slam["launches"] + odo["launches"]["gram"] + closed["launches"]["gram"]
             + reloc["launches"]
             + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"]
-            + app["launches"]["gram"] + train["launches"]["gram"],
+            + app["launches"]["gram"] + train["launches"]["gram"] + bench["launches"]["gram"],
             "launches_per_call": g["launches_per_call"],
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
@@ -2591,7 +2696,8 @@ def run(street: HostRender) -> int:
             "launches": odo["launches"]["deform"] + closed["launches"]["deform"]
             + mono["launches"]["deform"]
             + hybrid["launches"] + two["launches"]["deform"] + collab["launches"]["deform"]
-            + app["launches"]["deform"] + train["launches"]["deform"],
+            + app["launches"]["deform"] + train["launches"]["deform"]
+            + bench["launches"]["deform"],
             "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
             "ms": k2_real["ms"],
             "prev_ms": k2_real["prev_ms"],

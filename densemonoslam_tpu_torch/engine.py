@@ -32,6 +32,7 @@ Entry points run on the card unless the caller passes `device="cpu"`.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -55,6 +56,10 @@ _HIST_INITIAL_CAP = 1024
 # indexed writes into the pose histories, two per flush: a run reads this to
 # show that frames between flushes write nothing
 HIST_WRITES = 0
+# bounded-pacing waits (`Engine.process_frame`), counted on every device: a
+# run reads this to see on which frames the engine waited
+PACING_WAITS = 0
+_PACING_LAG = 8  # wait on the frame this many stats rows back
 
 
 @dataclasses.dataclass
@@ -80,6 +85,10 @@ class Frontend:
     _hist_pending: List[Tuple[torch.Tensor, int, float]] = dataclasses.field(default_factory=list)
     ts_log: List[float] = dataclasses.field(default_factory=list)
     stats_log: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    # on the card, a CUDA event recorded after each of the last
+    # `_PACING_LAG` frames' work, the newest last (the bounded pacing)
+    frame_events: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=_PACING_LAG))
     stats: SessionStats = dataclasses.field(default_factory=SessionStats)
     fern_state: Optional[loopsmod.FernLoopState] = None
     loops_closed: int = 0
@@ -402,6 +411,7 @@ class Engine:
         fe.ts_log.append(timestamp)
         fe.stats_log.append(stats)
         fe.tick += 1
+        self._pace(fe)
         self.timer.tock("frame_dispatch", t0)
         if fe.tick % self._compact_interval == 0:
             # reclaims culled slots and re-partitions [inactive..., active...]
@@ -462,6 +472,25 @@ class Engine:
             "dropped": float(row[stepmod.STAT_DROPPED]),
             "surfels": float(row[stepmod.STAT_SURFELS]),
         }
+
+    def _pace(self, fe: Frontend) -> None:
+        """Bounded pacing (`densemonoslam_tpu/engine.py:502-509`): every 4
+        frames, once more than `_PACING_LAG` stats rows are logged, wait for
+        the work of the frame `_PACING_LAG` rows back, and only for it.  In
+        steady state that frame has long finished; when the device falls
+        behind, the wait holds the host's queue to about that many frames.
+        On the CPU the work is done when the call returns: nothing to wait
+        for."""
+        global PACING_WAITS
+        dev = fe.state.map_data.device
+        if dev.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            fe.frame_events.append(ev)
+        if fe.tick % 4 == 0 and len(fe.stats_log) > _PACING_LAG:
+            PACING_WAITS += 1
+            if len(fe.frame_events) == _PACING_LAG:
+                fe.frame_events[0].synchronize()
 
     def _track_sparse(self, fe: Frontend, rgb: torch.Tensor, depth_raw: torch.Tensor):
         """The `orb_tracking` branch: track the frame with the frontend's

@@ -29,6 +29,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# nvcc processes started: a run reads it to show that no kernel was built
+# inside its timed frames
+BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -54,10 +57,12 @@ def build(*names: str) -> Dict[str, Path]:
     """Compile `csrc/<name>.cu` for each name whose library is missing, one
     `nvcc` process per source, all started together; return each name's
     library path.  Raises if any build fails."""
+    global BUILDS
     libs = {name: _library_path(name) for name in names}
     todo = {name: lib for name, lib in libs.items() if not lib.exists()}
     if not todo:
         return libs
+    BUILDS += len(todo)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}

@@ -53,8 +53,9 @@ def test_camera_presets_match_reference(name):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and the port's example entry
-    points (`examples/torch_*.py`) leaves jax and the JAX package out of
+    """Importing every module of the port, the port's example entry points
+    (`examples/torch_*.py`) and `torch_bench.py` leaves jax and the JAX
+    package out of
     `sys.modules` (the port must run where jax is not installed), and has
     no side effect: no thread (a server or a receiver), no native build."""
     code = (
@@ -65,8 +66,8 @@ def test_port_never_imports_jax():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "examples = sorted(Path('examples').glob('torch_*.py'))\n"
-        "assert len(examples) == 6, examples\n"
-        "for path in examples:\n"
+        "assert len(examples) == 13, examples\n"
+        "for path in [*examples, Path('torch_bench.py')]:\n"
         "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'densemonoslam_tpu.')) or k == 'densemonoslam_tpu')\n"

@@ -467,3 +467,31 @@ def test_sparse_track_without_flush_makes_no_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert len(trk._pending) == 2
     assert sum("synchroniz" in str(w.message) for w in caught) == 0
+
+
+def test_bounded_pacing_waits_on_frame_t_minus_8(cuda, monkeypatch):
+    """On the card the engine's bounded pacing records one CUDA event per
+    frame and, every 4 frames once more than 8 stats rows are logged, waits
+    on the event of the frame 8 rows back (`densemonoslam_tpu/engine.py:
+    502-509`), and on no other.  The step is replaced by one that returns a
+    stats row, so that nothing else waits."""
+    from densemonoslam_tpu_torch import engine as engmod
+
+    seq = SyntheticSequence(num_frames=2)
+    rgb, depth = (torch.from_numpy(x).to(cuda) for x in seq.frame(0))
+    eng = Engine(seq.camera, EngineConfig(max_surfels=1 << 10, open_loop=True), device=cuda)
+    fe = eng.frontend("cam0")
+    fe.step_fn = lambda state, *a: (state, torch.zeros(29, device=cuda))
+    waited = []
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda ev: waited.append(ev))
+    made, fired = [], {}
+    for i in range(21):
+        n = len(waited)
+        eng.process_frame("cam0", rgb, depth, float(i), sync=False)
+        made.append(fe.frame_events[-1])
+        if len(waited) > n:
+            fired[fe.tick] = waited[n:]
+    assert sorted(fired) == [12, 16, 20]
+    for tick, evs in fired.items():
+        assert len(evs) == 1 and evs[0] is made[tick - 8]
+    assert len(fe.frame_events) == engmod._PACING_LAG

@@ -237,3 +237,23 @@ def test_run_collaborative_merges():
     seq = JSyntheticSequence(num_frames=40, radius=0.35, max_angle=0.3)
     truth = (np.linalg.inv(seq.gt_pose(13)) @ seq.gt_pose(19))[:3, 3]
     np.testing.assert_allclose(rel, truth, atol=0.01)
+
+
+def test_bench_ablate_twin_matches_reference_tables():
+    """`torch_bench_ablate.py` sweeps the JAX script's `BASE` and `VARIANTS`,
+    and one variant's `run` times frames on the CPU (a 64x48 orbit)."""
+    ref, twin = _example("bench_ablate"), _example("torch_bench_ablate")
+    assert twin.BASE == ref.BASE and twin.VARIANTS == ref.VARIANTS
+    cam = CameraConfig(FrameResolution(64, 48), CameraIntrinsics(52.8, 52.8, 31.5, 23.5), "t")
+    assert twin.run("base", {}, n_frames=2, warmup=1, device="cpu", cam=cam) > 0
+
+
+def test_xbench_times_one_case_on_the_cpu(capsys):
+    """`torch_xbench.xbench` on one CPU case: ms per call, and the per-op
+    table it prints names the case's operators with their times."""
+    xb = _example("torch_xbench")
+    a = torch.from_numpy(np.random.default_rng(0).normal(size=(256, 256)).astype(np.float32))
+    res = xb.xbench({"matmul": (lambda x: x @ x, (a,))}, iters=5, top=3)
+    assert set(res) == {"matmul"} and res["matmul"] > 0
+    out = capsys.readouterr().out
+    assert "matmul" in out and "ms/call  (cpu)" in out and "aten::" in out

@@ -75,9 +75,22 @@ NO_COUNTERPART = {
     },
 }
 
-# JAX examples with no twin: TPU profiling scripts.  chip_smoke.py and
-# tools/ time the port on the card.
-PROFILING = {"bench_ablate.py", "xbench.py"}
+# JAX examples with no twin: each asks how XLA lowers the JAX package's
+# control flow, which the port, running eagerly, does not have; the reason
+# names the question and the twin that answers the timing question for the
+# port.
+NO_TWIN = {
+    "profile_bisect.py": "asks whether XLA's while_loop iterations or one lowering of the composed "
+                         "render cost its milliseconds; the port's eager render has neither, and "
+                         "torch_profile_render.py times its phases",
+    "profile_bisect2.py": "asks whether while_loop, fori_loop or unrolled loops cost least per "
+                          "iteration under XLA, to choose how GN loops are written; the port's "
+                          "loops are Python loops, and torch_profile_stages.py times track_gn",
+    "profile_chained.py": "chains each stage in a lax.scan so that XLA serialises the device work "
+                          "it times; the port reads device time from torch.profiler "
+                          "(torch_xbench.py, used by torch_profile_stages.py and "
+                          "torch_profile_micro.py)",
+}
 
 
 def _public_names(path: Path) -> set:
@@ -168,18 +181,37 @@ def _example_names() -> list:
 
 @pytest.mark.parametrize("example", _example_names())
 def test_every_example_has_a_twin(example):
-    """Each JAX example has its `examples/torch_<name>` twin, or is a TPU
-    profiling script (`profile_*.py`, `bench_ablate.py`, `xbench.py`)."""
-    if example.startswith("profile_") or example in PROFILING:
+    """Each JAX example has its `examples/torch_<name>` twin, or a reason in
+    `NO_TWIN`, and never both."""
+    twin = (EXAMPLES / f"torch_{example}").exists()
+    if example in NO_TWIN:
+        assert not twin, f"examples/{example} has a twin: drop its NO_TWIN entry"
+        assert NO_TWIN[example] and "\n" not in NO_TWIN[example]
         return
-    assert (EXAMPLES / f"torch_{example}").exists(), f"examples/{example} has no torch_ twin"
+    assert twin, f"examples/{example} has no torch_ twin"
+
+
+def test_no_twin_names_real_examples():
+    """Every `NO_TWIN` entry names a JAX example of the repo, and every
+    twin it points to exists."""
+    for example, reason in NO_TWIN.items():
+        assert (EXAMPLES / example).exists(), f"examples/{example} does not exist"
+        for word in reason.replace(",", " ").replace(";", " ").replace("(", " ").split():
+            if word.startswith("torch_") and word.endswith(".py"):
+                assert (EXAMPLES / word).exists(), f"{example}: {word} does not exist"
+
+
+def test_bench_has_its_twin():
+    """The repo's headline benchmark `bench.py` has its twin `torch_bench.py`
+    beside it."""
+    assert (REPO / "bench.py").exists() and (REPO / "torch_bench.py").exists()
 
 
 def test_port_and_twins_import_no_jax():
-    """No module of the port and no twin names jax, flax, optax or the JAX
-    package in an import statement."""
+    """No module of the port, no twin and not `torch_bench.py` names jax,
+    flax, optax or the JAX package in an import statement."""
     banned = ("jax", "flax", "optax", "densemonoslam_tpu")
-    for path in [*PORT.rglob("*.py"), *EXAMPLES.glob("torch_*.py")]:
+    for path in [*PORT.rglob("*.py"), *EXAMPLES.glob("torch_*.py"), REPO / "torch_bench.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
