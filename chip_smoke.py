@@ -6,7 +6,8 @@ Phases (any failure raises, so the exit code is not 0):
 
 0. device: requires CUDA, prints the card's name and power limit, builds the
    hand-written kernels from `densemonoslam_tpu_torch/csrc/` with nvcc (one
-   process per source, started together);
+   process per source, started together), K1, K2 and the IF-node condition
+   setter of the captured programs (`graph_if.cu`);
 1. kernel K1 (Gram reduction) against its plain PyTorch version at the
    tracking shapes: f64 agreement, zero-padding invariance, bit-identical
    reruns, one device kernel per call, and per shape the device times of
@@ -15,9 +16,20 @@ Phases (any failure raises, so the exit code is not 0):
 2. the open-loop path: `Engine()` on the 640x480 synthetic orbit at the
    headline configuration (1<<20-surfel map, 4 pyramid levels, row stride 2,
    NID keyframing, open loop): 4 warm-up + 30 timed frames, with tracking,
-   ATE, map size and kernel-launch checks.  Then compactions of the map;
+   ATE, map size and kernel-launch checks.  Then compactions of the map.
+   On the card every engine runs the step as one CUDA graph with on-device
+   branches (`step.make_graphed_step`), and every closure its GN-CG as one
+   (`deformation.optimise_graphed`); launches inside a graph's branches are
+   settled from the device before each count is read;
 3. where the time goes: 4 more frames under `torch.profiler`, with the
    device-busy share, device operations per frame and the top operations;
+3a. the captured step: the open-loop leg eager (the eager reference run)
+   and graphed in alternating pairs: wall and CUDA-event ms a frame, a
+   replay's device ms, host syncs by source line (none in the step's
+   replays), captures, replays and state copies (none in the timed
+   frames), capture seconds, poses against the eager run's (1e-4 m), both
+   ATEs < 10 mm, K1 launches through replays equal to the eager run's; then
+   an IF node against the plain `if` and its device time;
 3b. the odometry leg: `examples/torch_run_synthetic.py` at 640x480 on its
    orbit, 30 frames: frame-to-frame tracking (5 levels; fps, ATE < 20 mm, no
    failure, K1 launches by shape, device-busy ms per tracked frame under
@@ -35,7 +47,9 @@ Phases (any failure raises, so the exit code is not 0):
    frames, 45 warm-up + 60 timed frames, loop checks every 8 frames) with
    loops, K2 launches, host syncs, ATE and map checks; then, after the
    timed frames, one loop check that closes (of at most three) under
-   `torch.profiler`, timed by stage;
+   `torch.profiler`, timed by stage; then each GN-CG call of the leg again
+   on its inputs, graphed against eager: node transforms within 1e-5, the
+   energies, wall, CUDA-event and device ms;
 6. K2 against its plain version on the closed-loop map with the graph of
    its last accepted closure, times beside the bound;
 7. relocalisation at 640x480: 16 ground-truth frames, a teleport, 30 frames;
@@ -103,7 +117,8 @@ Phases (any failure raises, so the exit code is not 0):
    launches over the legs times (device time - bound).
 
 Each leg sets every launch count to 0 just before it and reads the counts
-just after; K1's counts are also kept per (P, C).  A kernel's time is the
+just after; K1's counts are also kept per (P, C).  The IF-node condition
+setter's launches are those of phase 3a's two graphed runs.  A kernel's time is the
 CUDA-event time of back-to-back calls queued behind a spin kernel (the
 kernels and the gaps between them); its launches per call are counted in a
 CUDA graph of one call.
@@ -115,6 +130,7 @@ time.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import math
@@ -148,6 +164,8 @@ from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
 from densemonoslam_tpu_torch.ops import cuda_build, deform, gram, preprocess, reductions
 from densemonoslam_tpu_torch.tracking import odometry
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
+from densemonoslam_tpu_torch.utils import graphs
+from densemonoslam_tpu_torch.utils import launches as klaunches
 
 # the first is the kernels line's headline shape (the open loop's finest level)
 GRAM_SHAPES = [(76800, 16), (19200, 16), (4800, 16), (4800, 8), (5000, 8), (307200, 8)]
@@ -339,7 +357,7 @@ def phase_device() -> str:
     log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libs = cuda_build.build("gram", "deform", "prev/gram", "prev/deform")
+    libs = cuda_build.build("gram", "deform", "graph_if", "prev/gram", "prev/deform")
     log(f"[phase 0] built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -398,16 +416,31 @@ def phase_gram(shapes=GRAM_SHAPES) -> dict:
     return dict(max_abs_err=worst, times=times)
 
 
+def settle() -> None:
+    """Wait for the device, then add the launches of the graphs' branch
+    bodies that ran since the last settle (`graphs.settle_counts`)."""
+    torch.cuda.synchronize()
+    graphs.settle_counts()
+
+
 def reset_counts() -> None:
-    """Set every kernel's launch counts to 0 (just before a path is driven)."""
-    gram.LAUNCHES = 0
-    gram.LAUNCHES_BY_SHAPE.clear()
-    deform.LAUNCHES = 0
+    """Set every kernel's launch counts to 0 (just before a path is driven);
+    launches inside branch bodies before this point are settled first, so
+    that none lands in the next path's counts."""
+    settle()
+    klaunches.reset()
+
+
+def counts() -> dict:
+    """K1's and K2's launches since the last `reset_counts`, settled."""
+    settle()
+    return dict(gram=klaunches.total("gram"), deform=klaunches.total("deform"))
 
 
 def by_shape() -> dict:
     """K1 launches per (P, C) since the last `reset_counts`, largest first."""
-    return dict(sorted(gram.LAUNCHES_BY_SHAPE.items(), reverse=True))
+    settle()
+    return dict(sorted(klaunches.by_shape("gram").items(), reverse=True))
 
 
 def _count_syncs(fn):
@@ -458,7 +491,7 @@ def phase_slam() -> dict:
         return time.perf_counter() - t0
 
     dt, syncs = _count_syncs(timed)
-    launches, shapes = gram.LAUNCHES, by_shape()
+    launches, shapes = counts()["gram"], by_shape()
     peak = torch.cuda.max_memory_allocated()
 
     stats = torch.stack(fe.stats_log).cpu().numpy()
@@ -522,6 +555,177 @@ def phase_profile(eng, frames) -> None:
         f"busy {busy / 1e3 / frames_n:.2f} ms/frame, {ops / frames_n:.0f} device ops/frame")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15,
                                   max_name_column_width=48))
+
+
+def _open_loop_run(kind: str, camera, seq, frames) -> dict:
+    """The open-loop leg at the headline configuration, `N_WARMUP` +
+    `N_TIMED` frames, through the engine's graphed step ("graphed") or,
+    as the eager reference run, with `step.make_step`'s step put in its
+    place ("eager").  Wall ms a frame (host clock, synchronised at both
+    ends), CUDA-event ms a frame over the same window, host syncs in the
+    timed frames by source line, K1 launches (settled), graph counters,
+    poses and ATE."""
+    cfg = EngineConfig(**HEADLINE)
+    eng = Engine(camera, cfg)
+    fe = eng.frontend("cam0")
+    if kind == "eager":
+        fe.step_fn = stepmod.make_step(camera.intrinsics, RES[1], RES[0], cfg)
+    fe.pose = seq.gt_pose(0).astype(np.float32)
+    n = N_WARMUP + N_TIMED
+    for i in range(N_WARMUP):
+        eng.process_frame("cam0", *frames[i], float(i), sync=False)
+    reset_counts()
+    g0 = (graphs.CAPTURES, graphs.REPLAYS, graphs.STATE_COPIES)
+    runs0 = dict(graphs.BRANCH_RUNS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(N_WARMUP, n):
+                eng.process_frame("cam0", *frames[i], float(i), sync=False)
+            end.record()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    root = os.path.dirname(os.path.abspath(__file__))
+    syncs = collections.Counter(
+        f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    out = dict(
+        wall_ms=1e3 * dt / N_TIMED, event_ms=start.elapsed_time(end) / N_TIMED, syncs=syncs,
+        launches=counts()["gram"], shapes=by_shape(), ifs=klaunches.total("graph_if"),
+        captures=graphs.CAPTURES - g0[0], replays=graphs.REPLAYS - g0[1],
+        copies=graphs.STATE_COPIES - g0[2], branches=_runs_since(runs0),
+    )
+    est = [p for _, p in fe.trajectory]
+    out["poses"] = np.stack(est)
+    out["ate_mm"] = 1e3 * ate_rmse(est, [seq.gt_pose(i) for i in range(len(est))])
+    if kind == "graphed":
+        out["capture_s"] = fe.step_fn.graphed.capture_seconds
+        eye = torch.eye(4, device="cuda")
+        settle()
+        runs0 = dict(graphs.BRANCH_RUNS)
+        out["replay_ms"] = device_ms(
+            lambda: fe.step_fn(fe.state, *frames[-1], eye, False, 1.0, 0.0), n=20)
+        settle()
+        out["replay_branches"] = _runs_since(runs0)
+    return out
+
+
+def _runs_since(before: dict) -> dict:
+    """Branch bodies run since `before` (a copy of `graphs.BRANCH_RUNS`),
+    by name; settle first."""
+    return {k: v - before.get(k, 0) for k, v in sorted(graphs.BRANCH_RUNS.items())
+            if v != before.get(k, 0)}
+
+
+def _if_node_check() -> dict:
+    """`csrc/graph_if.cu` against its plain version, the Python `if` of the
+    eager program: a graph of one branch (y = 2x where the flag holds)
+    replayed for each flag value against the `if`; then the device time of
+    one IF node (a graph of 50 branches, flags false, replayed behind a
+    spin kernel) beside the host read the `if` costs."""
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+
+    def one(flag, x):
+        y = x.clone()
+        graphs.branch(flag, lambda: y.mul_(2.0), "check")
+        return y
+
+    fn = graphs.GraphedFn(one)
+    err = 0.0
+    for flag in (True, False, True):
+        y = fn(flag, x)
+        want = x * 2.0 if flag else x
+        err = max(err, float((y - want).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"IF node: {err} from the plain if")
+    flags = torch.zeros(50, dtype=torch.bool, device="cuda")
+
+    def many(flags, x):
+        y = x.clone()
+        for k in range(50):
+            graphs.branch(flags[k], lambda: y.add_(1.0), "check")
+        return y
+
+    fn50 = graphs.GraphedFn(many)
+    fn50(flags, x)
+    ms = device_ms(lambda: fn50(flags, x), n=20) / 50
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    plain = call_ms(lambda: bool(flag))
+    b_ms, b_by = bound_ms(1, 0)  # one flag byte read
+    log(f"[graphs] IF node against the plain if: max|err| {err}; device {ms * 1e3:.3f} us per "
+        f"node (condition setter + node, from a graph of 50), plain if {plain * 1e3:.2f} us "
+        f"(a host read), bound {b_ms * 1e3:.6f} us ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_graphs() -> dict:
+    """The open-loop leg eager and graphed in alternating pairs (eager,
+    graphed, graphed, eager; `tools/bench_pairs.py`'s method): wall and
+    CUDA-event ms a frame, a replay's device ms, host syncs by source line,
+    captures, replays, state copies, capture seconds, the largest pose
+    difference between the runs and both ATEs.  The graphed runs must make
+    no host sync in the step, launch K1 as often as the eager ones and copy
+    no state in; their poses must lie within 1e-4 m of the eager run's (or
+    twice the two eager runs' own difference, if larger), both ATEs < 10 mm."""
+    camera = _camera()
+    n = N_WARMUP + N_TIMED
+    seq = SyntheticSequence(camera=camera, num_frames=n, radius=0.12, max_angle=0.12)
+    frames = [tuple(torch.from_numpy(x).cuda() for x in seq.frame(i)) for i in range(n)]
+    runs = []
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        r = _open_loop_run(kind, camera, seq, frames)
+        runs.append((kind, r))
+        top = ", ".join(f"{k} {v / N_TIMED:.2f}" for k, v in r["syncs"].most_common(6))
+        log(f"[graphs] {kind}: wall {r['wall_ms']:.2f} ms/frame, CUDA events "
+            f"{r['event_ms']:.2f} ms/frame, ATE {r['ate_mm']:.4f} mm, K1 launches "
+            f"{r['launches']}, IF setters {r['ifs']}, captures {r['captures']}, replays "
+            f"{r['replays']}, state copies {r['copies']}; host syncs a frame by line: "
+            f"{top or 'none'}; branch bodies run in the timed frames: {r['branches']}")
+        if kind == "graphed":
+            log(f"[graphs] graphed: capture {r['capture_s']:.3f} s, one replay's device time "
+                f"{r['replay_ms']:.3f} ms (20 replays behind a spin kernel after 2 more; branch "
+                f"bodies run over the 22: {r['replay_branches']})")
+    eager = [r for k, r in runs if k == "eager"]
+    graphed = [r for k, r in runs if k == "graphed"]
+
+    def pose_diff(a, b):
+        return float(np.abs(a["poses"][:, :3, 3] - b["poses"][:, :3, 3]).max())
+
+    eager_diff = pose_diff(*eager)
+    bound = max(1e-4, 2 * eager_diff)
+    diff = max(pose_diff(g, e) for g in graphed for e in eager)
+    in_step = {k: v for g in graphed for k, v in g["syncs"].items()
+               if k.startswith(("densemonoslam_tpu_torch/step.py",
+                                "densemonoslam_tpu_torch/utils/graphs.py",
+                                "densemonoslam_tpu_torch/tracking/"))}
+    wall = {k: [r["wall_ms"] for kk, r in runs if kk == k] for k in ("eager", "graphed")}
+    log(f"[graphs] pairs: eager {wall['eager']} ms/frame, graphed {wall['graphed']} ms/frame "
+        f"(fps {[round(1e3 / w, 2) for w in wall['eager']]} / "
+        f"{[round(1e3 / w, 2) for w in wall['graphed']]}); largest pose difference graphed "
+        f"against eager {diff * 1e3:.6f} mm (bound {bound * 1e3:.4f} mm; eager against eager "
+        f"{eager_diff * 1e3:.6f} mm); host syncs in the step's replays {sum(in_step.values())}")
+    if in_step:
+        raise AssertionError(f"host syncs inside the graphed step: {in_step}")
+    if not diff <= bound:
+        raise AssertionError(f"graphed poses {diff} m from the eager run's (bound {bound})")
+    for kind, r in runs:
+        if not r["ate_mm"] < 10.0:
+            raise AssertionError(f"{kind} run: ATE {r['ate_mm']:.3f} mm")
+    if any(g["launches"] != e["launches"] for g in graphed for e in eager):
+        raise AssertionError(f"K1 launches through replays {[g['launches'] for g in graphed]} "
+                             f"!= eager {[e['launches'] for e in eager]}")
+    if any(g["copies"] or g["captures"] or g["replays"] != N_TIMED for g in graphed):
+        raise AssertionError("graphed timed frames: a capture, a state copy or a frame "
+                             f"without its replay: {[(g['captures'], g['replays'], g['copies']) for g in graphed]}")
+    if_check = _if_node_check()
+    return dict(runs=runs, diff=diff, bound=bound, eager_diff=eager_diff, if_check=if_check,
+                ifs=sum(g["ifs"] for g in graphed))
 
 
 def _deform_checks(label: str, data: torch.Tensor, count: torch.Tensor, graph) -> dict:
@@ -682,7 +886,7 @@ def phase_odometry() -> dict:
         seq.frame(i)
     reset_counts()  # count only this path's launches from here
     odo = mod.run_odometry(seq, ODO_FRAMES, "cuda", levels=ODO_LEVELS)
-    f2f = gram.LAUNCHES
+    f2f = counts()["gram"]
     per_pair = sum(odometry.ITERATIONS_DEFAULT) + odometry.SO3_ITERATIONS
     stages = {k: round(v, 2) for k, v in odo["timer"].summary().items()}
     log(f"[odometry] {ODO_FRAMES} frames at {RES[0]}x{RES[1]}, {ODO_LEVELS} levels: "
@@ -712,9 +916,9 @@ def phase_odometry() -> dict:
     if not np.isfinite(lit["ate"]):
         raise AssertionError("odometry at 3 levels: non-finite poses")
 
-    gram_before = gram.LAUNCHES
+    gram_before = counts()["gram"]
     slam = mod.run_slam(seq, ODO_FRAMES, "cuda")
-    slam_launches = gram.LAUNCHES - gram_before
+    slam_launches = counts()["gram"] - gram_before
     log(f"[odometry] full engine (the example's EngineConfig) on the same orbit: "
         f"{slam['fps']:.2f} fps, ATE {slam['ate'] * 1e3:.4f} mm, frames not tracked "
         f"{slam['failed']}, surfels {slam['surfels']}, gram launches {slam_launches} "
@@ -729,7 +933,7 @@ def phase_odometry() -> dict:
         history_run = _repo_module(os.path.join("tests", "torch_closed_loop.py")).history_run
         runs = [history_run(tmp, tag, flush, "cuda")
                 for tag, flush in (("batched", False), ("each", True), ("batched_again", False))]
-    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    launches = counts()
     shapes = by_shape()
     batched, each, _ = runs
     same = dict(
@@ -822,8 +1026,10 @@ def _profile_closure(eng, fe, frames: list, start: int, interval: int) -> None:
 def phase_closed_loop() -> dict:
     """The closed-loop leg at full width; per-frame wall time and host syncs
     separate the loop-check frames from the others.  After the timed frames
-    one closure is profiled by stage (`_profile_closure`); the map and graph
-    returned for K2's check are those of the timed frames' end."""
+    one closure is profiled by stage (`_profile_closure`), then each GN-CG
+    call of the leg is held against the eager function (`_gncg_checks`);
+    the map and graph returned for K2's check are those of the timed
+    frames' end."""
     camera = _camera()
     seq = SyntheticSequence(camera=camera, num_frames=LAP, radius=0.35, max_angle=0.3)
     frames = [tuple(torch.from_numpy(x).cuda() for x in seq.frame(i)) for i in range(LAP)]
@@ -831,6 +1037,64 @@ def phase_closed_loop() -> dict:
     eng = Engine(camera, cfg)
     fe = eng.frontend("cam0")
     fe.pose = seq.gt_pose(0).astype(np.float32)
+    # every GN-CG call's inputs, for `_gncg_checks` after the leg
+    calls, graphed = [], dg.optimise_graphed
+
+    def recording(graph, cons, frozen=None, iters=dg.GN_ITERS, cg_iters=dg.CG_ITERS, rel=None):
+        calls.append(tuple(None if x is None else type(x)(*(t.clone() for t in x))
+                           if isinstance(x, tuple) else x.clone() for x in (graph, cons, frozen, rel)))
+        return graphed(graph, cons, frozen, iters, cg_iters, rel)
+
+    dg.optimise_graphed = recording
+    try:
+        out = _closed_loop_leg(camera, seq, frames, cfg, eng, fe)
+    finally:
+        dg.optimise_graphed = graphed
+    out["gncg"] = _gncg_checks(calls)
+    return out
+
+
+def _gncg_checks(calls: list) -> list:
+    """Each GN-CG call of the closed-loop leg again on its recorded inputs,
+    graphed (the leg's graph replayed) and eager (the eager reference run,
+    `deformation.optimise`): the largest difference of the node transforms
+    A and t (bound 1e-5), the energies, wall ms (synchronised) and
+    CUDA-event ms of each, and the graph's device ms a call (replays behind
+    a spin kernel)."""
+    rows = []
+    for k, (graph, cons, frozen, rel) in enumerate(calls):
+        res = {}
+        for kind, fn in (("graphed", dg.optimise_graphed), ("eager", dg.optimise)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out, st = fn(graph, cons, frozen=frozen, rel=rel)
+            end.record()
+            torch.cuda.synchronize()
+            res[kind] = (out, st, 1e3 * (time.perf_counter() - t0), start.elapsed_time(end))
+        (g, gs, g_wall, g_ev), (e, es, e_wall, e_ev) = res["graphed"], res["eager"]
+        diff = max(float((g.A - e.A).abs().max()), float((g.t - e.t).abs().max()))
+        dev = device_ms(lambda: dg.optimise_graphed(graph, cons, frozen=frozen, rel=rel), n=5)
+        row = dict(diff=diff, energies=[float(x) for x in (*gs, *es)], graphed_wall_ms=g_wall,
+                   graphed_event_ms=g_ev, graphed_device_ms=dev, eager_wall_ms=e_wall,
+                   eager_event_ms=e_ev)
+        rows.append(row)
+        log(f"[closed] GN-CG call {k}: graphed against eager max|dA, dt| {diff:.3e}; energies "
+            f"(initial, final, mean constraint error) graphed "
+            f"{[round(x, 6) for x in row['energies'][:3]]}, eager "
+            f"{[round(x, 6) for x in row['energies'][3:]]}; wall graphed {g_wall:.2f} / eager "
+            f"{e_wall:.2f} ms, CUDA events {g_ev:.2f} / {e_ev:.2f} ms, the graph's device "
+            f"{dev:.2f} ms")
+    if not rows:
+        raise AssertionError("the closed-loop leg ran no GN-CG")
+    worst = max(r["diff"] for r in rows)
+    if not worst < 1e-5:
+        raise AssertionError(f"graphed GN-CG node transforms {worst} from the eager ones")
+    return rows
+
+
+def _closed_loop_leg(camera, seq, frames, cfg, eng, fe) -> dict:
     closed = []  # per frame: did it close a loop
     for i in range(CL_WARMUP):
         c0 = fe.loops_closed
@@ -857,7 +1121,7 @@ def phase_closed_loop() -> dict:
             dt = time.perf_counter() - t_start
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    launches = counts()
     shapes = by_shape()
     walls, syncs = 1e3 * np.array(walls), np.array(syncs, float)
     closed_all = np.array(closed)
@@ -940,39 +1204,32 @@ def phase_relocalisation() -> dict:
     relocalise = eng.relocalise
 
     def counting(*a, **k):
-        before = gram.LAUNCHES
+        before = counts()["gram"]
         calls.append(relocalise(*a, **k))
-        in_reloc.append(gram.LAUNCHES - before)
+        in_reloc.append(counts()["gram"] - before)
         return calls[-1]
 
-    # tracking levels re-run after a starved level (`fallback="select"`
-    # runs both the exact and the frozen iterations of each later level)
-    gn_level = odometry._gn_level
-    reruns = [0]
-
-    def counting_level(*a, **k):
-        reruns[0] += k.get("fallback") == "select"
-        return gn_level(*a, **k)
+    def starved():
+        """Tracking levels redone after starving (`graphs.branch` runs of
+        the `starved<level>` fallbacks, in the step and in relocalisation)."""
+        settle()
+        return sum(n for k, n in graphs.BRANCH_RUNS.items() if k.startswith("starved"))
 
     eng.relocalise = counting
-    odometry._gn_level = counting_level
-    per_frame = []  # (gram launches, of them inside relocalisation, levels re-run)
+    per_frame = []  # (gram launches, of them inside relocalisation, levels redone)
     reset_counts()  # count only this path's launches from here
-    try:
-        for i in range(30):
-            n0, r0, s0 = gram.LAUNCHES, sum(in_reloc), reruns[0]
-            eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
-            per_frame.append((gram.LAUNCHES - n0, sum(in_reloc) - r0, reruns[0] - s0))
-    finally:
-        odometry._gn_level = gn_level
-    launches, shapes = gram.LAUNCHES, by_shape()
+    for i in range(30):
+        n0, r0, s0 = counts()["gram"], sum(in_reloc), starved()
+        eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
+        per_frame.append((counts()["gram"] - n0, sum(in_reloc) - r0, starved() - s0))
+    launches, shapes = counts()["gram"], by_shape()
     err = float(np.linalg.norm(fe.pose[:3, 3] - seq.gt_pose(15)[:3, 3]))
     log(f"[reloc] {ferns} fern keyframes; {len(calls)} relocalisation attempts, "
         f"{sum(calls)} accepted; final pose {err:.3f} m from the map's last ground-truth pose")
     log(f"[reloc] gram launches: {launches} in the 30 frames after the teleport, "
         f"{sum(in_reloc)} of them inside relocalisation attempts")
-    log(f"[reloc] per frame (gram launches, of them in relocalisation, levels re-run "
-        f"after starving): {per_frame}")
+    log(f"[reloc] per frame (gram launches, of them in relocalisation, tracking levels "
+        f"redone after starving): {per_frame}")
     log(f"[reloc] gram launches by (P, C): {shapes}")
     if ferns < 1:
         raise AssertionError("no fern keyframe stored")
@@ -1196,7 +1453,7 @@ def phase_mono_street(seq: StreetSequence, frames: list) -> dict:
             dt = time.perf_counter() - t_start
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    launches = counts()
     shapes = by_shape()
     peak = torch.cuda.max_memory_allocated()
     n_timed = MONO_FRAMES - STREET_WARMUP
@@ -1309,7 +1566,7 @@ def phase_hybrid_closure() -> dict:
     state, info, graph = loopsmod.apply_hybrid_loop(fe.state, C, camera, cfg)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
-    launches = deform.LAUNCHES
+    launches = counts()["deform"]
     pre, post = pre_data[:n].cpu().numpy(), state.map_data[:n].cpu().numpy()
     t_init = pre[:, sm.INIT_TIME]
     moved = post[:, sm.POS] - pre[:, sm.POS]
@@ -1540,7 +1797,7 @@ def phase_two_cameras() -> dict:
         f"{len(eng2.maps)}")
     if not (inl >= 30 and rms < 0.25 and bterr < 0.2 and len(eng2.maps) == 1):
         raise AssertionError(f"batch align: inliers {inl}, rms {rms}, error {bterr}")
-    launches, shapes = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES), by_shape()
+    launches, shapes = counts(), by_shape()
     log(f"[two cameras] launches with the batch align: gram {launches['gram']}, deform "
         f"{launches['deform']}; gram by (P, C): {shapes}")
     return dict(launches=launches, shapes=shapes)
@@ -1683,7 +1940,7 @@ def collab_rank(leg: str) -> dict:
         k: host / n_p for k, (_, _, host) in coll.items()})
     rlog(f"{n_p} collab steps under the profiler: {res['profile']}")
     if leg == "solo":
-        res["launches"] = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+        res["launches"] = counts()
         res["shapes"] = {f"{p}x{c}": n for (p, c), n in by_shape().items()}
         return res
 
@@ -1763,7 +2020,7 @@ def collab_rank(leg: str) -> dict:
          f"loops closed per camera {closed.tolist()}; map {int(state.map_count)} surfels, "
          f"session total {int(total)}")
     del state
-    res["launches"] = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    res["launches"] = counts()
 
     # ---- distributed PGO and BA against the single-device solves ------------
     gt, est, ei, ej, Z, w = _noisy_pose_graph()
@@ -1795,10 +2052,10 @@ def collab_rank(leg: str) -> dict:
     # ---- the sharded K2 apply over a (cam 1 x map 2) mesh ---------------------
     mesh12 = meshmod.make_mesh(n_cams=1, n_map=world)
     data, count, graph = _synthetic_deform_case()
-    k2 = deform.LAUNCHES
+    k2 = counts()["deform"]
     out = map_shard.make_sharded_apply_to_map(mesh12)(data.clone(), count, graph)
     torch.cuda.synchronize()
-    res["launches"]["deform"] += deform.LAUNCHES - k2
+    res["launches"]["deform"] += counts()["deform"] - k2
     one = deform.deform_map(data.clone(), count, graph)  # the comparison: not counted
     torch.cuda.synchronize()
     res["shard_equal"] = bool(torch.equal(out, one))
@@ -2231,12 +2488,14 @@ def phase_app() -> dict:
     launches, shapes, fps = dict(gram=0, deform=0), {}, {}
 
     def count(label):
-        launches["gram"] += gram.LAUNCHES
-        launches["deform"] += deform.LAUNCHES
-        for shape, k in gram.LAUNCHES_BY_SHAPE.items():
+        settle()
+        k1, k2 = klaunches.total("gram"), klaunches.total("deform")
+        launches["gram"] += k1
+        launches["deform"] += k2
+        for shape, k in klaunches.by_shape("gram").items():
             shapes[shape] = shapes.get(shape, 0) + k
-        log(f"[app] {label}: K1 {gram.LAUNCHES} launches, K2 {deform.LAUNCHES}")
-        if gram.LAUNCHES == 0:
+        log(f"[app] {label}: K1 {k1} launches, K2 {k2}")
+        if k1 == 0:
             raise AssertionError(f"{label}: no K1 launch, the run did not track on the card")
 
     work = tempfile.mkdtemp(prefix="app_")
@@ -2399,7 +2658,7 @@ def _train_mono(mod, path: str) -> dict:
         info = eng.process_frame("cam0", seq.frame(i)[0], None, float(i))
         n_ok += info["tracking_ok"] == 1.0
     torch.cuda.synchronize()
-    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)
+    launches = counts()
     shapes = by_shape()
     est = [p for _, p in eng.frontends["cam0"].trajectory]
     ate = float(ate_rmse(est, [seq.gt_pose(i) for i in range(TRAIN_MONO_FRAMES)]))
@@ -2556,7 +2815,7 @@ def phase_bench() -> dict:
     device = [v for v in stages["device_ms"].values() if not math.isnan(v)]
     if not all(v > 0 for v in (*stages["wall_ms"].values(), *device)):
         raise AssertionError(f"torch_profile_stages: a stage without time: {stages}")
-    launches = dict(gram=gram.LAUNCHES, deform=deform.LAUNCHES)  # before K2's checks
+    launches = counts()  # before K2's checks
     shapes = by_shape()
     log(f"[bench] launches: gram {launches['gram']}, deform {launches['deform']}; "
         f"gram by (P, C): {shapes}")
@@ -2607,6 +2866,9 @@ def run(street: HostRender) -> int:
     del slam["engine"], slam["frames"]
     torch.cuda.empty_cache()
     lap("open loop")
+    gph = phase_graphs()
+    torch.cuda.empty_cache()
+    lap("graphs")
     odo = phase_odometry()
     torch.cuda.empty_cache()
     lap("odometry")
@@ -2706,6 +2968,19 @@ def run(street: HostRender) -> int:
             "bound_by": k2_real["bound_by"],
             "library_ms": None,
             "shapes": k2_checks,
+        },
+        {
+            "name": "graph_if",
+            "route": "cuda",
+            "source": "densemonoslam_tpu_torch/csrc/graph_if.cu",
+            "replaces": "densemonoslam_tpu/step.py:407",
+            "launches": gph["ifs"],
+            "max_abs_err": gph["if_check"]["max_abs_err"],
+            "ms": gph["if_check"]["ms"],
+            "plain_ms": gph["if_check"]["plain_ms"],
+            "bound_ms": gph["if_check"]["bound_ms"],
+            "bound_by": gph["if_check"]["bound_by"],
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

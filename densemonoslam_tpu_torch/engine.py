@@ -1,9 +1,14 @@
 """The SLAM engine: host-side orchestration around the per-frame step (port
 of `densemonoslam_tpu.engine`).
 
-`Engine.process_frame` uploads a frame, runs `step.make_step`'s step, logs
-the stats vector, records the tracked pose in a device pose history and
-compacts the map every 64 frames.  Unless `open_loop`, every
+`Engine.process_frame` uploads a frame, runs the step, logs the stats
+vector, records the tracked pose in a device pose history and compacts the
+map every 64 frames.  On the card the step is one CUDA graph per camera
+(`step.make_graphed_step`), captured at the camera's first frame: the
+camera's state is the graph's, updated in place, and the map backend's
+tensors are every member camera's graph buffers, so a new map from outside
+the step (a compaction, a closure, a merge, a checkpoint) is copied into
+them.  Unless `open_loop`, every
 `loop_check_interval` frames it updates the fern keyframe database and tries
 a local loop closure; an accepted closure rewrites the pose history and the
 fern poses through the deformation graph and re-partitions the map.  With
@@ -49,6 +54,7 @@ from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import preprocess, splat
 from densemonoslam_tpu_torch.tracking import odometry, registration
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
+from densemonoslam_tpu_torch.utils import graphs
 from densemonoslam_tpu_torch.utils.stats import SessionStats
 from densemonoslam_tpu_torch.utils.timer import Stopwatch
 
@@ -89,6 +95,10 @@ class Frontend:
     # `_PACING_LAG` frames' work, the newest last (the bounded pacing)
     frame_events: collections.deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=_PACING_LAG))
+    # on the card with relocalisation: per frame, (event, pinned host copy
+    # of the stats row's bad-frame count), the newest last; the lagged poll
+    # waits on the oldest's event alone
+    bad_counts: Optional[collections.deque] = None
     stats: SessionStats = dataclasses.field(default_factory=SessionStats)
     fern_state: Optional[loopsmod.FernLoopState] = None
     loops_closed: int = 0
@@ -245,24 +255,34 @@ class Engine:
         used with `predict_depth=True`)."""
         self._depth_predictor = predictor
 
-    def _step_for(self, camera: CameraConfig, sensor_id: int):
+    def _step_for(self, camera: CameraConfig, sensor_id: int, name: str):
         """The step of a camera geometry, sensor and the current config, built
         once per distinct key: a config swap back to an earlier value reuses
-        its step."""
+        its step.  On the card each camera has its own (its graph holds that
+        camera's state), compiled at its first frame."""
         res = camera.resolution
         key = (camera.intrinsics, res.width, res.height, sensor_id, self.config)
+        if self.device.type == "cuda":
+            key += (name,)
         if key not in self._step_cache:
-            self._step_cache[key] = stepmod.make_step(
-                camera.intrinsics, res.height, res.width, self.config, sensor_id
+            self._step_cache[key] = stepmod.make_device_step(
+                camera.intrinsics, res.height, res.width, self.config, sensor_id, self.device
             )
         return self._step_cache[key]
+
+    def _recompile(self, fe: Frontend) -> None:
+        """Drop camera `fe`'s graphs: its next frame captures its step again,
+        over the map it is in now."""
+        for key in [k for k in self._step_cache if k[-1] == fe.name]:
+            del self._step_cache[key]
+        fe.step_fn = self._step_for(fe.camera, fe.sensor_id, fe.name)
 
     def update_config(self, **kw) -> None:
         """Live parameter change (the reference GUI's slider sync): every
         frontend's step is re-derived through the step cache."""
         self.config = self.config.replace(**kw)
         for fe in self.frontends.values():
-            fe.step_fn = self._step_for(fe.camera, fe.sensor_id)
+            fe.step_fn = self._step_for(fe.camera, fe.sensor_id, fe.name)
 
     def frontend(self, name: str, sensor_id: Optional[int] = None) -> Frontend:
         """Create a camera frontend in its own new map (reference
@@ -279,7 +299,7 @@ class Engine:
             state=stepmod.init_state(
                 self.config.max_surfels, res.height, res.width, device=self.device
             ),
-            step_fn=self._step_for(self.camera, sensor_id),
+            step_fn=self._step_for(self.camera, sensor_id, name),
             map_name=name,
         )
         self.frontends[name] = fe
@@ -298,7 +318,20 @@ class Engine:
         return cfg.active_window if cfg.active_window < cfg.max_surfels else 0
 
     def _set_map(self, be: MapBackend, data: torch.Tensor, count: torch.Tensor) -> None:
-        """New map tensors for the backend and every member frontend."""
+        """New map tensors for the backend and every member frontend.  On the
+        card the backend keeps its tensors, the member steps' graph buffers:
+        new contents are copied into them (`graphs.STATE_COPIES`), and a map
+        of another shape makes every member compile its step again."""
+        if self.device.type == "cuda" and be.map_data is not None:
+            if data.shape == be.map_data.shape and data.dtype == be.map_data.dtype:
+                if data is not be.map_data:
+                    graphs.copy_state(be.map_data, data)
+                if count is not be.map_count:
+                    graphs.copy_state(be.map_count, count)
+                data, count = be.map_data, be.map_count
+            else:
+                for name in be.contexts:
+                    self._recompile(self.frontends[name])
         be.map_data, be.map_count = data, count
         for name in be.contexts:
             fe = self.frontends[name]
@@ -405,6 +438,9 @@ class Engine:
                 fe.state, rgb, depth_raw, pose_in, use_in, cfg.fusion_weight_multiplier,
                 float(cluster),
             )
+        # on the card the stats row is the graph's buffer, which the next
+        # replay overwrites
+        stats = stats.clone()
         self._set_map(be, fe.state.map_data, fe.state.map_count)
         fe.record_pose(stats, self.global_tick)
         self.global_tick += 1
@@ -412,6 +448,8 @@ class Engine:
         fe.stats_log.append(stats)
         fe.tick += 1
         self._pace(fe)
+        if cfg.relocalisation and dev.type == "cuda":
+            self._queue_bad_count(fe, stats)
         self.timer.tock("frame_dispatch", t0)
         if fe.tick % self._compact_interval == 0:
             # reclaims culled slots and re-partitions [inactive..., active...]
@@ -422,8 +460,15 @@ class Engine:
         # every frame once lost
         if cfg.relocalisation and (fe.tick % cfg.loop_check_interval == 0 or fe.lost):
             lag = 0 if fe.lost else 2 * cfg.loop_check_interval
-            row = fe.stats_log[max(len(fe.stats_log) - 1 - lag, 0)]
-            fe.consecutive_bad = int(row[stepmod.STAT_CONSEC_BAD])
+            if lag and dev.type == "cuda":
+                # frame t-lag's count, in pinned memory behind its event:
+                # the read waits for that frame alone, not the stream
+                ev, host = fe.bad_counts[0]
+                ev.synchronize()
+                fe.consecutive_bad = int(host)
+            else:
+                row = fe.stats_log[max(len(fe.stats_log) - 1 - lag, 0)]
+                fe.consecutive_bad = int(row[stepmod.STAT_CONSEC_BAD])
             fe.lost = fe.consecutive_bad > 10
             if fe.lost and self.relocalise(name, rgb, depth_raw):
                 fe.lost = False
@@ -491,6 +536,19 @@ class Engine:
             PACING_WAITS += 1
             if len(fe.frame_events) == _PACING_LAG:
                 fe.frame_events[0].synchronize()
+
+    def _queue_bad_count(self, fe: Frontend, stats: torch.Tensor) -> None:
+        """Copy this frame's bad-frame count into pinned memory behind an
+        event, for the poll `2 * loop_check_interval` frames later (the
+        deque's oldest entry is that frame's, or frame 0's before then)."""
+        keep = 2 * self.config.loop_check_interval + 1
+        if fe.bad_counts is None or fe.bad_counts.maxlen != keep:
+            fe.bad_counts = collections.deque(maxlen=keep)
+        host = torch.empty((), dtype=torch.float32, pin_memory=True)
+        host.copy_(stats[stepmod.STAT_CONSEC_BAD], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(stats.device))
+        fe.bad_counts.append((ev, host))
 
     def _track_sparse(self, fe: Frontend, rgb: torch.Tensor, depth_raw: torch.Tensor):
         """The `orb_tracking` branch: track the frame with the frontend's
@@ -677,6 +735,10 @@ class Engine:
             dst.contexts.extend(src.contexts)
             del self.maps[src_map]
             self._set_map(dst, m.data, m.count)
+            if self.device.type == "cuda":
+                # their graphs hold the source map: capture them over this one
+                for name in src.contexts:
+                    self._recompile(self.frontends[name])
 
     # ------------------------------------------------------------- exports
     def predict_view(self, name: str, mode: int = splat.MODE_ALL) -> splat.Prediction:

@@ -268,7 +268,7 @@ def try_local_loop(
         graph = dg.sample_graph(data, count, cfg.max_deform_nodes, cfg.deform_graph_sample_rate)
         # anchor the old (inactive-epoch) part; deform the recent part
         frozen = graph.time < (t_f - cfg.time_delta)
-        graph2, stats = dg.optimise(graph, cons, frozen=frozen, rel=rel_bank.cons)
+        graph2, stats = dg.optimise_graphed(graph, cons, frozen=frozen, rel=rel_bank.cons)
         cons_err = float(stats.mean_cons_error)  # gate 3
     if not cons_err <= cfg.loop_cons_err_thresh:
         return not_closed(inact_frac, inlier_h, icp_err_h, cons_err)
@@ -343,7 +343,7 @@ def apply_hybrid_loop(
         )
         graph = dg.sample_graph(data, count, cfg.max_deform_nodes, cfg.deform_graph_sample_rate)
         frozen = graph.time < (t_f - cfg.time_delta)
-        graph2, stats = dg.optimise(graph, cons, frozen=frozen, rel=rel_bank.cons)
+        graph2, stats = dg.optimise_graphed(graph, cons, frozen=frozen, rel=rel_bank.cons)
         accept = stats.mean_cons_error <= 2.0 * cfg.loop_cons_err_thresh
         accept_h, cons_err = torch.stack(  # the one read
             [accept.to(torch.float32), stats.mean_cons_error]

@@ -13,7 +13,8 @@ products are ``vjp(jvp(residual))`` (autograd, `_normal_products`) on a flat
 [K*12] parameter vector, inside a conjugate-gradient solve that reproduces
 `jax.scipy.sparse.linalg.cg` (x0 = 0, tol 1e-5, atol 0) with a fixed 64
 iterations whose update is masked off once the stopping test holds, so the
-solve never reads the device.
+solve never reads the device.  `optimise_graphed` runs it on the card as
+one CUDA graph per problem shape, as the reference jits it.
 
 Vertices and poses blend over the k nearest of a 20-node temporal look-back
 window.  The whole-map apply is kernel K2 (`ops.deform`); everything else
@@ -30,7 +31,7 @@ import torch
 
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import deform
-from densemonoslam_tpu_torch.utils import se3
+from densemonoslam_tpu_torch.utils import graphs, se3
 from densemonoslam_tpu_torch.utils.tensors import scalar
 
 W_ROT = 1.0
@@ -406,6 +407,46 @@ def optimise(
         )
     out = graph._replace(A=A.clone(), t=t.clone())
     return out, OptimiseStats(initial_error=e0, final_error=e1, mean_cons_error=ce)
+
+
+# one program per (device, nodes, constraints, relative constraints or None,
+# GN iterations, CG iterations), as a jit cache holds one per shape
+_PROGRAMS: Dict[tuple, graphs.GraphedFn] = {}
+
+
+def optimise_graphed(
+    graph: DeformGraph,
+    cons: Constraint,
+    frozen: Optional[torch.Tensor] = None,
+    iters: int = GN_ITERS,
+    cg_iters: int = CG_ITERS,
+    rel: Optional[RelConstraint] = None,
+) -> Tuple[DeformGraph, OptimiseStats]:
+    """`optimise` as one device program: on the card a CUDA graph, captured
+    at the first call of each problem shape (the CG, the backtracking and
+    the autograd products in it) and replayed; `optimise` itself on the
+    CPU.  Returns fresh tensors, as `optimise` does."""
+    dev = graph.pos.device
+    if dev.type != "cuda":
+        return optimise(graph, cons, frozen, iters, cg_iters, rel)
+    if frozen is None:
+        frozen = torch.zeros((graph.n_nodes,), dtype=torch.bool, device=dev)
+    n_rel = None if rel is None else rel.src.shape[0]
+    key = (dev, graph.n_nodes, cons.src.shape[0], n_rel, iters, cg_iters)
+    if key not in _PROGRAMS:
+        ng, nc = len(DeformGraph._fields), len(Constraint._fields)
+
+        def program(*flat):
+            g = DeformGraph(*flat[:ng])
+            c = Constraint(*flat[ng : ng + nc])
+            r = RelConstraint(*flat[ng + nc + 1 :]) if n_rel is not None else None
+            out, st = optimise(g, c, flat[ng + nc], iters, cg_iters, r)
+            return out.A, out.t, st.initial_error, st.final_error, st.mean_cons_error
+
+        _PROGRAMS[key] = graphs.GraphedFn(program)
+    A, t, e0, e1, ce = _PROGRAMS[key](*graph, *cons, frozen, *(rel or ()))
+    return graph._replace(A=A.clone(), t=t.clone()), OptimiseStats(e0.clone(), e1.clone(),
+                                                                   ce.clone())
 
 
 def apply_to_map(data: torch.Tensor, count: torch.Tensor, graph: DeformGraph) -> torch.Tensor:

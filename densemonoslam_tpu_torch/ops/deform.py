@@ -6,7 +6,8 @@ closure.
 map on the CPU goes to `deform_map_reference`, the plain PyTorch version; a
 map on the card goes to the hand-written Hopper kernel in `csrc/deform.cu`
 (replacing the TPU kernel `densemonoslam_tpu.ops.pallas.deform.deform_soa_pallas`),
-or the call raises.  `LAUNCHES` counts kernel launches.
+or the call raises.  Each launch adds one to `utils.launches` under
+``("deform", None)``.
 
 Both forms update `data` IN PLACE (the reference donates the map): rows
 `< count` with `conf > 0` get new positions (columns 0:3) and normals
@@ -27,8 +28,7 @@ import torch
 
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import cuda_build
-
-LAUNCHES = 0
+from densemonoslam_tpu_torch.utils import launches
 
 MAX_NODES = 512  # the node table the kernel stages in shared memory
 LOOKBACK = 20  # temporal candidate window
@@ -114,7 +114,6 @@ def _declare(lib: ctypes.CDLL) -> None:
 def deform_map_cuda(data: torch.Tensor, count: torch.Tensor, graph) -> torch.Tensor:
     """Launch K2 (its node-table prologue, then the map kernel) on PyTorch's
     current stream (no synchronise); returns `data`."""
-    global LAUNCHES
     lib = cuda_build.load("deform", _declare)
     f32 = dict(dtype=torch.float32)
     count64 = count.to(torch.int64)
@@ -134,7 +133,7 @@ def deform_map_cuda(data: torch.Tensor, count: torch.Tensor, graph) -> torch.Ten
     )
     if err != 0:
         raise RuntimeError(f"deform kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    launches.add("deform")
     return data
 
 

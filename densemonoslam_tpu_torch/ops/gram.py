@@ -10,22 +10,21 @@ The kernel is compiled with `nvcc` for `sm_90a` into `build/kernels/` at
 first use, keyed by a hash of its source, and loaded through a plain C entry
 point with `ctypes` (`ops.cuda_build`).  One call is one launch: the entry
 point, and each stream's scratch and ticket, are looked up once and kept.
-`LAUNCHES` counts kernel launches so a run can show that its main path went
-through the kernel; `LAUNCHES_BY_SHAPE` counts them per ``(P, C)``.
+Inside a CUDA graph capture the scratch is the capture stream's, allocated
+by the warm-up before it (`utils.graphs.scratch_stream`).  Each launch
+adds one to `utils.launches` under ``("gram", (P, C))``, so a run can show
+that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import Dict, Tuple
 
 import torch
 
 from densemonoslam_tpu_torch.ops import cuda_build
-
-LAUNCHES = 0
-LAUNCHES_BY_SHAPE: Counter = Counter()
+from densemonoslam_tpu_torch.utils import graphs, launches
 
 SUPPORTED_COLS = (8, 16)
 
@@ -64,7 +63,7 @@ def _scratch(device: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Ten
 
 def gram_cuda(M: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no synchronise)."""
-    global LAUNCHES, _launch, _scratch_floats
+    global _launch, _scratch_floats
     if M.data_ptr() % 16:
         raise ValueError("gram needs a 16-byte aligned M for its bulk copies")
     if _launch is None:
@@ -74,14 +73,13 @@ def gram_cuda(M: torch.Tensor) -> torch.Tensor:
     P, C = M.shape
     dev = M.device
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    partials, ticket = _scratch(dev, stream)
+    partials, ticket = _scratch(dev, graphs.scratch_stream(dev, stream))
     out = torch.empty((C, C), dtype=torch.float32, device=dev)
     err = _launch(M.data_ptr(), P, C, partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
                   dev.index, stream)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(P, C)] += 1
+    launches.add("gram", (P, C))
     return out
 
 

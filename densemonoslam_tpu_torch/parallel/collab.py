@@ -1,7 +1,8 @@
 """Collaborative multi-camera SLAM: one camera per rank of a `torch.distributed`
 process group (port of `densemonoslam_tpu.parallel.collab`).
 
-Each rank runs the full per-frame step (`step.make_step`) on its own camera
+Each rank runs the full per-frame step (`step.make_device_step`: one CUDA
+graph on the card) on its own camera
 and map; the cameras' stats rows are all-gathered over the mesh's `cam`
 group, so every rank sees the whole session's health, and the map sizes are
 summed.  Intra-map loop closure runs on each rank at the caller's cadence
@@ -54,11 +55,13 @@ def make_collab_step(
     this rank's step on its own frame, the session's stats rows gathered in
     camera order, and the surfels of all cameras' maps (0-dim, replicated)."""
     cfg = config or EngineConfig(**DEFAULT_CONFIG)
-    step = stepmod.make_step(intr, height, width, cfg)
+    steps = {}  # by device: the step is captured for the state it first sees
 
     def collab_step(state: CollabState, rgb: torch.Tensor, depth: torch.Tensor):
         dev = state.map_data.device
-        state, stats = step(
+        if dev not in steps:
+            steps[dev] = stepmod.make_device_step(intr, height, width, cfg, 0, dev)
+        state, stats = steps[dev](
             state, torch.as_tensor(rgb, device=dev), torch.as_tensor(depth, device=dev),
             torch.eye(4, dtype=torch.float32, device=dev), False, 1.0, 0.0,
         )

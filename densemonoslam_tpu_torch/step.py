@@ -6,10 +6,16 @@ ACTIVE-window splat render, window fusion with the inline clean, fill-in and
 insertion.  `SlamState` holds the same fields as the reference's, and the
 stats vector keeps its 29-float layout.
 
-Host reads: the reference decides `need_render` and `do_fuse` on the device
-with `lax.cond`; here both come back to the host in ONE two-element read per
-frame, and `odometry.track` makes one more read (the starvation flags).  No
-other value of the step is read back.
+The step is one device program, as the reference's jitted step is.  Its
+decisions stay on the device: the render branch (render, fuse, place,
+fill-in) and the fuse branch inside it are `utils.graphs.branch`es, as are
+the starved-level fallbacks of `odometry.track`; everything else is a
+device select.  Nothing is read back.  `make_graphed_step` captures the
+step as one CUDA graph, each branch a conditional IF node, and replays it
+every frame, the map updated in place (the reference donates it).
+`make_step` returns the same step to run op by op: on the CPU, where each
+branch is a Python `if` whose read of its predicate is the step's only
+host read, and on the card for per-stage timings.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from densemonoslam_tpu_torch.mapping import keyframe as kfmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, splat
 from densemonoslam_tpu_torch.tracking import odometry
-from densemonoslam_tpu_torch.utils import se3
+from densemonoslam_tpu_torch.utils import graphs, se3
 from densemonoslam_tpu_torch.utils.tensors import scalar
 
 
@@ -248,7 +254,7 @@ def make_step(
         if cfg.relocalisation:
             do_fuse = do_fuse & ((model_cover >= 0.1) | first)
 
-        # ---------------- render + fuse + clean (conditional) ----------
+        # ---------------- render + fuse + clean (device branches) ------
         d_pose = torch.where(
             use_in_pose,
             se3.se3_inverse(state.model_pose) @ new_pose,
@@ -258,31 +264,43 @@ def make_step(
         rot_delta = torch.arccos(
             torch.clamp((torch.trace(d_pose[:3, :3]) - 1.0) * 0.5, -1.0, 1.0)
         )
-        need_render_t = (
+        need_render = (
             first | do_fuse
             | (support < cfg.model_min_support)
             | (trans_delta > cfg.model_trans_delta)
             | (rot_delta > cfg.model_rot_delta)
             | (state.model_age + 1 >= cfg.model_max_age)
         )
-        # the step's one read of its own decisions
-        need_render, fused = torch.stack([need_render_t, do_fuse]).tolist()
-
         data, count = state.map_data, state.map_count
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        matched = added = culled = dropped = zero
-        if need_render:
-            N_cap = data.shape[0] - 1
-            win_n = win if 0 < win < N_cap else N_cap
+        N_cap = data.shape[0] - 1  # shape-derived: callers may size the map
+        win_n = win if 0 < win < N_cap else N_cap
+        S_pack = min(height * width, N_cap)
+        # the render branch's outputs, holding what the keep side returns:
+        # the branch overwrites them where it runs (only window-sized
+        # blocks and images pass out; the map is written in place)
+        pred_int = state.pred_intensity.clone()
+        pred_v = state.pred_vmap.clone()
+        pred_n = state.pred_nmap.clone()
+        pred_d = state.pred_depth.clone()
+        model_pose = state.model_pose.clone()
+        model_age = state.model_age + 1
+        new_count = count.clone()
+        matched, added, culled, dropped = (
+            torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4)
+        )
+
+        def render_branch():
             pred = splat.render(
                 data, count, new_pose, intr, width, height, t_now,
                 time_delta=cfg.time_delta, mode=splat.MODE_ACTIVE, window=win,
             )
-            pred_int, pred_v, pred_n, pred_d = pred.intensity, pred.vmap, pred.nmap, pred.depth
-            if fused:
+            graphs.assign((pred_int, pred_v, pred_n, pred_d, model_pose),
+                          (pred.intensity, pred.vmap, pred.nmap, pred.depth, new_pose))
+            model_age.zero_()
+
+            def fuse_branch():
                 win_start = splat.active_window_start(count, N_cap, win_n)
-                S_pack = min(height * width, N_cap)
-                blk, packed, rank, n_want, matched, culled = fusion.fuse_window(
+                blk, packed, rank, n_want, n_matched, n_culled = fusion.fuse_window(
                     splat.window_rows(data, win_start, win_n), win_start, count, pred,
                     vmap_f, nmap_f, rgb.to(torch.float32), new_pose, intr, time=t_now,
                     sensor=sensor, weight_mult=weight_mult, clean_depth=depth_m,
@@ -291,8 +309,14 @@ def make_step(
                     # a map smaller than one frame must truncate: new rows first
                     pack_sorted=S_pack < height * width,
                 )
-                data, count, added, dropped = fusion.place_updates(
+                _, n_after, n_added, n_dropped = fusion.place_updates(
                     data, count, blk, win_start, packed[:S_pack], n_want, rank[:S_pack]
+                )
+                i64 = torch.int64
+                graphs.assign(
+                    (new_count, matched, added, culled, dropped),
+                    (n_after.to(i64), n_matched.to(i64), n_added.to(i64),
+                     n_culled.to(i64), n_dropped.to(i64)),
                 )
                 # the fused frame's content IS map content now: composite the
                 # pre-fuse prediction with the live frame where it has holes
@@ -300,22 +324,24 @@ def make_step(
                     pred.intensity, pred.depth, pred.vmap, pred.nmap,
                     intensity, frame_pyr.vmap[0][..., 2], frame_pyr.vmap[0], frame_pyr.nmap[0],
                 )
-                pred_int, pred_v, pred_n, pred_d = comp.intensity, comp.vmap, comp.nmap, comp.depth
-            model_pose, model_age = new_pose, zero
-            model_rel = torch.eye(4, dtype=torch.float32, device=dev)
-        else:
-            pred_int, pred_v = state.pred_intensity, state.pred_vmap
-            pred_n, pred_d = state.pred_nmap, state.pred_depth
-            model_pose, model_age = state.model_pose, state.model_age + 1
-            model_rel = d_pose
+                graphs.assign((pred_int, pred_v, pred_n, pred_d),
+                              (comp.intensity, comp.vmap, comp.nmap, comp.depth))
 
-        if fused:
-            # the NID keyframe snapshots the predicted composite
-            kf_pose, kf_int = new_pose, pred_int
-            kf_dep = torch.where(pred_d <= cfg.depth_cutoff, pred_d, 0.0)
-        else:
-            kf_pose, kf_int, kf_dep = state.kf_pose, state.kf_intensity, state.kf_depth
-        kf_count = state.kf_count + int(fused)
+            graphs.branch(do_fuse, fuse_branch, "fuse")
+
+        graphs.branch(need_render, render_branch, "render")
+        model_rel = torch.where(
+            need_render, torch.eye(4, dtype=torch.float32, device=dev), d_pose
+        )
+        # keyframe promotion on fuse: the NID keyframe snapshots the
+        # predicted composite
+        kf_pose = torch.where(do_fuse, new_pose, state.kf_pose)
+        kf_int = torch.where(do_fuse, pred_int, state.kf_intensity)
+        kf_dep = torch.where(
+            do_fuse, torch.where(pred_d <= cfg.depth_cutoff, pred_d, 0.0), state.kf_depth
+        )
+        kf_count = state.kf_count + do_fuse.to(state.kf_count.dtype)
+        count = new_count
         if cfg.frame_to_frame_rgb:
             pred_int = intensity
 
@@ -338,3 +364,59 @@ def make_step(
         return new_state, stats
 
     return step
+
+
+def make_graphed_step(
+    intr: CameraIntrinsics,
+    height: int,
+    width: int,
+    config: EngineConfig,
+    sensor: int = 0,
+):
+    """`make_step`'s step as one CUDA graph (the reference's
+    `jax.jit(step, donate_argnums=(0,))`), for CUDA tensors.
+
+    The same call and results as the eager step.  It is captured at its
+    first call: the state it was given becomes the graph's state, taken by
+    address (the map too) and updated in place by every replay, and the
+    returned state holds those same tensors; a field replaced from outside
+    is copied in at the next call (`graphs.STATE_COPIES`).  The stats
+    vector lives in the graph's pool: the next replay overwrites it, so a
+    caller clones what it keeps.  A CPU tensor raises `ValueError`."""
+    eager = make_step(intr, height, width, config, sensor)
+    n = len(STATE_FIELDS)
+    tick = STATE_FIELDS.index("tick")
+
+    def program(*flat):
+        state = SlamState(*flat[:n])
+        new_state, stats = eager(state, *flat[n:])
+        for name in STATE_FIELDS:
+            old, new = getattr(state, name), getattr(new_state, name)
+            if new is not old:
+                old.copy_(new)
+        return stats
+
+    # the session tick is written anew every frame: an input, not state
+    graphed = graphs.GraphedFn(program, donate=[i for i in range(n) if i != tick])
+
+    def step(state, rgb, depth_raw, in_pose, use_in_pose, weight_mult, cluster_id=0.0):
+        stats = graphed(*(getattr(state, f) for f in STATE_FIELDS), rgb, depth_raw, in_pose,
+                        use_in_pose, weight_mult, cluster_id)
+        return SlamState(*graphed.inputs[:n]), stats
+
+    step.graphed = graphed
+    return step
+
+
+def make_device_step(
+    intr: CameraIntrinsics,
+    height: int,
+    width: int,
+    config: EngineConfig,
+    sensor: int,
+    device: torch.device | str,
+):
+    """The step as it runs on `device`: `make_graphed_step`'s on the card,
+    `make_step`'s elsewhere."""
+    make = make_graphed_step if torch.device(device).type == "cuda" else make_step
+    return make(intr, height, width, config, sensor)

@@ -8,11 +8,8 @@ package, so the iterations themselves never read the device.
 
 The one data-dependent branch is the starvation fallback of `_gn_level`
 (redo a level with exact re-association when its first frozen iteration
-starves).  Instead of one host read per level, `track` computes each level's
-`starved` flag on the device, reads them all once at the end, and only on
-the rare starved frame re-runs from the first starved level, with the
-finer levels then choosing between both paths on the device.  The result is
-the reference's: levels above the first starved one are unchanged by it.
+starves): one `utils.graphs.branch` per level on the device flag, the
+reference's `lax.cond` per level.
 """
 
 from __future__ import annotations
@@ -23,7 +20,7 @@ import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
 from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, warp
-from densemonoslam_tpu_torch.utils import se3
+from densemonoslam_tpu_torch.utils import graphs, se3
 
 ITERATIONS_DEFAULT = (4, 5, 10)
 ITERATIONS_INTERMAP = (50, 50, 50)  # inter-map verification at a reduced size
@@ -260,15 +257,6 @@ def _frozen_iters(lvl: _Level, carry, n: int):
     return carry, first_ok
 
 
-def _select(flag, a, b):
-    """Carry `a` where the device bool `flag` holds, else `b`."""
-    return (
-        torch.where(flag, a[0], b[0]),
-        tuple(torch.where(flag, x, y) for x, y in zip(a[1], b[1])),
-        torch.where(flag, a[2], b[2]),
-    )
-
-
 def _gn_level(
     model: ModelPyramid,
     frame: FramePyramid,
@@ -281,15 +269,11 @@ def _gn_level(
     row_stride: int = 1,
     nearest_finest: bool = True,
     exact_iters: int = 0,
-    fallback: str = "defer",
 ):
-    """Gauss-Newton iterations at one pyramid level.
+    """Gauss-Newton iterations at one pyramid level; returns (A, stats).
 
-    Returns (A, stats, pending).  With `fallback="defer"`, `pending` is None
-    or `(starved, lvl, pre_carry, rest)`: the caller must redo the level with
-    `_exact_iters(lvl, pre_carry, rest)` where the device bool `starved`
-    holds.  With `fallback="select"` both paths run and the device picks
-    one; `pending` is then None."""
+    When the first frozen iteration starves, the level is redone from its
+    warm start with exact re-association (the branch `starved<level>`)."""
     i_c = frame.intensity[level]
     v_c, n_c = frame.vmap[level], frame.nmap[level]
     # subsample the residual rows where the level keeps a healthy row count
@@ -316,8 +300,7 @@ def _gn_level(
             carry = _exact_iters(lvl, carry, min(10, iterations - start))
             if bool(carry[2]):
                 break
-        return carry[0], carry[1], None
-    pending = None
+        return carry[0], carry[1]
     if nearest_finest:
         ex = min(exact_iters, iterations)
         carry = _exact_iters(lvl, carry, ex)
@@ -326,13 +309,18 @@ def _gn_level(
             pre = carry
             carry, first_ok = _frozen_iters(lvl, carry, rest)
             starved = ~pre[2] & ~first_ok
-            if fallback == "select":
-                carry = _select(starved, _exact_iters(lvl, pre, rest), carry)
-            else:
-                pending = (starved, lvl, pre, rest)
+            # the frozen carry's tensors are `torch.where` results of this
+            # level alone: the fallback overwrites them in place
+            out = (carry[0], *carry[1], carry[2])
+
+            def refit():
+                A, stats, done = _exact_iters(lvl, pre, rest)
+                graphs.assign(out, (A, *stats, done))
+
+            graphs.branch(starved, refit, f"starved{level}")
     else:
         carry = _exact_iters(lvl, carry, iterations)
-    return carry[0], carry[1], pending
+    return carry[0], carry[1]
 
 
 def track(
@@ -351,9 +339,8 @@ def track(
 ) -> TrackResult:
     """Full multi-level tracking; returns A with ``T_curr = T_model_view @ A``.
 
-    Reads the device once (the levels' starvation flags), plus once more on
-    a frame where a level starved; a level with more than 12 iterations
-    reads its convergence flag every 10 iterations."""
+    Reads nothing back, apart from a level with more than 12 iterations,
+    which reads its convergence flag every 10 iterations."""
     levels = len(frame.intensity)
     A = A_init
     if use_so3 and levels > 1:
@@ -370,29 +357,15 @@ def track(
         lv for lv in range(levels - 1, -1, -1)
         if (iterations[lv] if lv < len(iterations) else 0) > 0 and (pyramid or lv == 0)
     ]
-
-    def level(i, A, fallback):
+    stats = None
+    for i, lv in enumerate(run):
         # the first GN level's warm start still carries the unsolved
         # translation, so it re-associates exactly for two iterations
-        return _gn_level(
-            model, frame, A, run[i], iterations[run[i]], intr, icp_weight, rgb_only,
+        A, stats = _gn_level(
+            model, frame, A, lv, iterations[lv], intr, icp_weight, rgb_only,
             row_stride=row_stride, nearest_finest=nearest_eff,
-            exact_iters=2 if i == 0 else 0, fallback=fallback,
+            exact_iters=2 if i == 0 else 0,
         )
-
-    stats = None
-    pendings = []
-    for i in range(len(run)):
-        A, stats, pending = level(i, A, "defer")
-        pendings.append(pending)
-    deferred = [i for i, p in enumerate(pendings) if p is not None]
-    starved = torch.stack([pendings[i][0] for i in deferred]).tolist() if deferred else []
-    if any(starved):
-        k = deferred[starved.index(True)]
-        _, lvl, pre, rest = pendings[k]
-        A, stats, _ = _exact_iters(lvl, pre, rest)
-        for i in range(k + 1, len(run)):
-            A, stats, _ = level(i, A, "select")
 
     icp_err, icp_inl, rgb_err, rgb_inl, JtJ = stats
     dt = torch.linalg.norm(A[:3, 3] - A_init[:3, 3])

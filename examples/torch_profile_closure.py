@@ -10,12 +10,15 @@ calls synchronised once):
   track / graph sample / GN-CG optimise / apply_to_map (kernel K2) /
   reactivate + compact
 
-and the whole closure end to end: the port runs the local loop eagerly, so
-"FULL fused closure" is `loops.try_local_loop` on that state and bank, each
-call on a fresh copy of the map (an accepted closure deforms and reactivates
-it in place).  On the card the device time of one call of each stage (the
-summed self time of its kernels, copies and fills under `torch.profiler`)
-stands beside its wall time.
+and the whole closure end to end: the port runs the local loop op by op
+around its GN-CG (one CUDA graph on the card), so "FULL fused closure" is
+`loops.try_local_loop` on that state and bank, each call on a fresh copy of
+the map (an accepted closure deforms and reactivates it in place).  The
+stages run op by op, GN-CG included; on the card "GN-CG (graphed)" times
+the graph the closure runs (`deformation.optimise_graphed`) on the same
+inputs.  On the card the device time of one call of each stage (the summed
+self time of its kernels, copies and fills under `torch.profiler`) stands
+beside its wall time.
 
     python examples/torch_profile_closure.py [--platform cuda|cpu]
 
@@ -215,6 +218,13 @@ def main(argv=None, n_surfels: int = N_SURFELS, capacity: int = CAPACITY, width:
     (graph2, stats), *rows["GN-CG optimise (3x64)"] = t(
         "GN-CG optimise (3x64)", lambda g, c, f: dg.optimise(g, c, frozen=f), graph, cons, frozen)
     print(f"  mean_cons_error={float(stats.mean_cons_error):.4f}")
+    if dev == "cuda":
+        (_, gstats), *rows["GN-CG (graphed)"] = t(
+            "GN-CG (graphed)", lambda g, c, f: dg.optimise_graphed(g, c, frozen=f), graph, cons,
+            frozen)
+        print(f"  mean_cons_error={float(gstats.mean_cons_error):.4f}")
+    else:
+        print(f"{'GN-CG (graphed)':36s} not measured: CUDA graphs run on the card only")
 
     _, *rows["apply_to_map"] = t("apply_to_map", dg.apply_to_map, state.map_data.clone(),
                                  state.map_count, graph2)

@@ -3,10 +3,14 @@ of `examples/profile_stages.py`).
 
 Times each pipeline stage (preprocess, tracking GN through kernel K1, splat
 render, fusion, NID) as its own call over realistic 640x480 state, then the
-full step, so optimisation effort lands where the frame time goes.  Each
-stage's time is its synchronised wall time per call; on the card its device
-time per call (the summed self time of its kernels, copies and fills under
-`torch.profiler`, `examples/torch_xbench.py`) stands beside it.
+full step, so optimisation effort lands where the frame time goes.  The
+stages and FULL_STEP run op by op (`step.make_step`); on the card "full step
+(graphed)" is the engine's step, one CUDA graph replayed.  Each row's time
+is its synchronised wall time per call; on the card its device time per
+call stands beside it: for the op-by-op rows the summed self time of its
+kernels, copies and fills under `torch.profiler`
+(`examples/torch_xbench.py`), for the graph's row CUDA events around
+back-to-back replays, which the host queues faster than the card runs them.
 
 Usage: python examples/torch_profile_stages.py [--width 640 --height 480]
        [--frames 24] [--platform cuda|cpu]
@@ -23,6 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import torch
 
+from densemonoslam_tpu_torch import step as stepmod
 from densemonoslam_tpu_torch.config import (
     CameraConfig, CameraIntrinsics, EngineConfig, FrameResolution,
 )
@@ -167,8 +172,8 @@ def main(argv=None) -> dict:
     }
     out = {name: timeit(fn, *a, device=dev) for name, (fn, a) in cases.items()}
 
-    # full step, steady-state (replay the last frame repeatedly)
-    step = eng.frontends["cam0"].step_fn
+    # full step, steady-state (replay the last frame repeatedly), op by op
+    step = stepmod.make_step(intr, H, W, cfg)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     state = [st]
 
@@ -181,15 +186,34 @@ def main(argv=None) -> dict:
     # one profiled call a stage: reading a profile of the full step's ~11,000
     # device operations takes the host seconds
     device_ms = xbench(cases, iters=1, quiet=True) if on_card else {}
+    graphed = "full step (graphed)"
+    if on_card:
+        fe = eng.frontends["cam0"]  # its step: the graph the engine replays
 
-    total = sum(v for k, v in out.items() if k != "FULL_STEP")
+        def full_graphed(rgb, depth_raw):
+            fe.state, stats = fe.step_fn(fe.state, rgb, depth_raw, eye, False, 1.0, 0.0)
+            return stats
+
+        out[graphed] = timeit(full_graphed, rgb, depth_raw, iters=60, device=dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(60):
+            full_graphed(rgb, depth_raw)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms[graphed] = start.elapsed_time(end) / 60
+
+    whole = ("FULL_STEP", graphed)
+    total = sum(v for k, v in out.items() if k not in whole)
     head = "device ms" if on_card else "device ms: not measured (CPU)"
-    print(f"{'stage':<16} {'wall ms':>9}  {head}")
+    print(f"{'stage':<20} {'wall ms':>9}  {head}")
     for k, v in out.items():
         d = f"{device_ms[k]:9.3f}" if on_card else ""
-        print(f"{k:<16} {v:9.3f}  {d}")
-    d_total = sum(v for k, v in device_ms.items() if k != "FULL_STEP")
-    print(f"{'sum(stages)':<16} {total:9.3f}  {f'{d_total:9.3f}' if on_card else ''}")
+        print(f"{k:<20} {v:9.3f}  {d}")
+    if not on_card:
+        print(f"{graphed:<20} not measured: CUDA graphs run on the card only")
+    d_total = sum(v for k, v in device_ms.items() if k not in whole)
+    print(f"{'sum(stages)':<20} {total:9.3f}  {f'{d_total:9.3f}' if on_card else ''}")
     name = torch.cuda.get_device_name(0) if on_card else "cpu"
     print(f"platform={dev} {name}")
     return dict(wall_ms=out, device_ms=device_ms)

@@ -16,6 +16,7 @@ from densemonoslam_tpu_torch.mapping import deformation as tdg
 from densemonoslam_tpu_torch.ops import cuda_build
 from densemonoslam_tpu_torch.ops import deform as tdeform
 from densemonoslam_tpu_torch.ops import gram as tgram
+from densemonoslam_tpu_torch.utils import launches as klaunches
 
 torch.set_num_threads(2)
 
@@ -36,12 +37,12 @@ def test_gram_kernel_matches_reference(cuda, P, C):
     to run and under zero padding."""
     M = torch.from_numpy(np.random.default_rng(P + C).normal(0, 1, (P, C)).astype(np.float32))
     M = M.to(cuda)
-    before = tgram.LAUNCHES
+    before = klaunches.total("gram")
     out = tgram.gram(M)
     again = tgram.gram(M)
     padded = tgram.gram(torch.cat([M, torch.zeros(3000, C, device=cuda)]))
     torch.cuda.synchronize()
-    assert tgram.LAUNCHES == before + 3
+    assert klaunches.total("gram") == before + 3
     ref = tgram.gram_reference(M.double()).cpu().numpy()
     np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=2e-5, atol=1e-2)
     assert torch.equal(out, again)
@@ -117,11 +118,11 @@ def test_engine_on_cuda_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         eng = Engine(seq.camera, cfg, device=dev)
         eng.frontend("cam0").pose = seq.gt_pose(0).astype(np.float32)
-        before = tgram.LAUNCHES
+        before = klaunches.total("gram")
         for i in range(8):
             info = eng.process_frame("cam0", *seq.frame(i), float(i))
             assert info["tracking_ok"] == 1.0
-        launched = tgram.LAUNCHES - before
+        launched = klaunches.total("gram") - before
         poses[str(dev)] = np.stack([p for _, p in eng.frontends["cam0"].trajectory])
     assert launched >= 8 * 29  # every SO3 and GN iteration of the GPU run
     for a, b in zip(poses["cuda"], poses["cpu"]):
@@ -166,12 +167,12 @@ def test_deform_kernel_matches_reference(cuda, N, K):
     d = torch.from_numpy(data).to(cuda)
     c = torch.full((), count, dtype=torch.int64, device=cuda)
     graph = tdg.graph_from_numpy(g, cuda)
-    before = tdeform.LAUNCHES
+    before = klaunches.total("deform")
     out = tdeform.deform_map(d.clone(), c, graph)
     again = tdeform.deform_map(d.clone(), c, graph)
     ref = tdeform.deform_map_reference(d.clone(), c, graph)
     torch.cuda.synchronize()
-    assert tdeform.LAUNCHES == before + 2
+    assert klaunches.total("deform") == before + 2
     assert torch.equal(out, again)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
     alive = torch.zeros(N + 1, dtype=torch.bool, device=cuda)
@@ -278,7 +279,7 @@ def test_closed_loop_engine_on_cuda_matches_cpu(cuda):
         eng = Engine(seq.camera, cfg, device=dev)
         fe = eng.frontend("cam0")
         fe.pose = seq.gt_pose(0).astype(np.float32)
-        launches = tdeform.LAUNCHES
+        launches = klaunches.total("deform")
         for i in range(10):
             eng.process_frame("cam0", *seq.frame(i), float(i), in_pose=seq.gt_pose(i).astype(np.float32))
         eng.global_tick = 100
@@ -291,7 +292,7 @@ def test_closed_loop_engine_on_cuda_matches_cpu(cuda):
                 closed_at = i
                 break
         runs[str(dev)] = (closed_at, np.stack([p for _, p in fe.trajectory]),
-                          tdeform.LAUNCHES - launches)
+                          klaunches.total("deform") - launches)
     assert runs["cuda"][0] is not None and runs["cuda"][0] == runs["cpu"][0]
     assert runs["cuda"][2] >= 1 and runs["cpu"][2] == 0
     np.testing.assert_allclose(runs["cuda"][1][:, :3, 3], runs["cpu"][1][:, :3, 3], atol=1e-3)
@@ -495,3 +496,222 @@ def test_bounded_pacing_waits_on_frame_t_minus_8(cuda, monkeypatch):
     for tick, evs in fired.items():
         assert len(evs) == 1 and evs[0] is made[tick - 8]
     assert len(fe.frame_events) == engmod._PACING_LAG
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+# `tests/test_torch_graph.py`'s frame order: frame 5 shows the orbit's frame
+# 11 (tracking fails: a render without fusion), frame 7 its frame 18 (the
+# finer levels starve on the CPU)
+GRAPH_ORDER = [0, 1, 2, 3, 4, 11, 6, 18, 8, 9]
+
+
+def _graph_case(cuda):
+    """The 96x128 orbit at `__graft_entry__.entry()`'s configuration (1<<14
+    rows, NID keyframing, open loop) as device frames in `GRAPH_ORDER`."""
+    from densemonoslam_tpu_torch.config import CameraConfig, CameraIntrinsics, FrameResolution
+
+    H, W = 96, 128
+    intr = CameraIntrinsics(100.0, 100.0, W / 2 - 0.5, H / 2 - 0.5)
+    seq = SyntheticSequence(camera=CameraConfig(FrameResolution(W, H), intr, "graph"),
+                            num_frames=40, radius=0.35, max_angle=0.3)
+    cfg = EngineConfig(max_surfels=1 << 14, depth_cutoff=100.0, depth_factor=1.0,
+                       nid_keyframing=True, open_loop=True)
+    frames = [tuple(torch.from_numpy(x).to(cuda) for x in seq.frame(f)) for f in GRAPH_ORDER]
+    return seq, intr, cfg, frames
+
+
+def test_graphed_step_matches_eager(cuda):
+    """Ten frames through the graphed step and through the eager step from
+    one initial state (fuse, no-render, render-only and starved frames):
+    every stats row within 1e-5 (flags and counts exact), the same
+    surfels; no host synchronisation inside a replay (sync debug mode
+    "error"); the K1 launches counted through the replays of frames 1-9,
+    settled, equal the eager run's."""
+    from densemonoslam_tpu_torch import step as tstep
+    from densemonoslam_tpu_torch.utils import graphs
+
+    seq, intr, cfg, frames = _graph_case(cuda)
+    eye = torch.eye(4, device=cuda)
+    rows, launches, runs = {}, {}, {}
+    for mode in ("eager", "graphed"):
+        make = tstep.make_step if mode == "eager" else tstep.make_graphed_step
+        fn = make(intr, 96, 128, cfg)
+        st = tstep.init_state(1 << 14, 96, 128, device=cuda)
+        st.pose = torch.from_numpy(seq.gt_pose(0).astype(np.float32)).to(cuda)
+        out = []
+        for k, (rgb, depth) in enumerate(frames):
+            if k == 1:
+                torch.cuda.synchronize()
+                graphs.settle_counts()
+                before, runs0 = klaunches.total("gram"), dict(graphs.BRANCH_RUNS)
+            st = st.replace(tick=torch.full((), k, dtype=torch.int64, device=cuda))
+            if mode == "graphed" and k > 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, stats = fn(st, rgb, depth, eye, False, 1.0, 0.0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out.append(stats.clone())
+        torch.cuda.synchronize()
+        graphs.settle_counts()
+        launches[mode] = klaunches.total("gram") - before
+        runs[mode] = {k: v - runs0.get(k, 0) for k, v in graphs.BRANCH_RUNS.items()
+                      if v != runs0.get(k, 0)}
+        rows[mode] = torch.stack(out).cpu().numpy()
+    exact = [tstep.STAT_TRACK_OK, tstep.STAT_FUSED, tstep.STAT_MATCHED, tstep.STAT_ADDED,
+             tstep.STAT_CULLED, tstep.STAT_SURFELS, tstep.STAT_KEYFRAMES, tstep.STAT_DROPPED]
+    np.testing.assert_array_equal(rows["graphed"][:, exact], rows["eager"][:, exact])
+    np.testing.assert_allclose(rows["graphed"], rows["eager"], rtol=1e-5, atol=1e-5)
+    assert runs["graphed"] == runs["eager"] and runs["eager"].get("render", 0) > 0
+    assert launches["graphed"] == launches["eager"] >= 9 * 29  # every SO3 and GN iteration
+
+
+def test_engine_logs_distinct_rows_through_the_graph(cuda):
+    """The engine on the card captures one graph for its camera and replays
+    it: ten logged stats rows, each its own tensor with its own frame's
+    pose (none aliases the graph's buffer), ten replays, no state copied
+    in; the history and the state's pose agree with the last row."""
+    from densemonoslam_tpu_torch import step as tstep
+    from densemonoslam_tpu_torch.utils import graphs
+
+    seq, intr, cfg, frames = _graph_case(cuda)
+    eng = Engine(seq.camera, cfg, device=cuda)
+    fe = eng.frontend("cam0")
+    fe.pose = seq.gt_pose(0).astype(np.float32)
+    captures, replays = graphs.CAPTURES, graphs.REPLAYS
+    for k, (rgb, depth) in enumerate(frames):
+        eng.process_frame("cam0", rgb, depth, float(k), sync=False)
+    copies = graphs.STATE_COPIES
+    torch.cuda.synchronize()
+    assert graphs.CAPTURES - captures == 1 and graphs.REPLAYS - replays == len(frames)
+    assert len({r.data_ptr() for r in fe.stats_log}) == len(frames)
+    rows = torch.stack(fe.stats_log).cpu().numpy()
+    poses = rows[:, tstep.STAT_POSE0:]
+    assert all(not np.array_equal(poses[i], poses[i + 1]) for i in range(len(poses) - 1)
+               if rows[i + 1, tstep.STAT_TRACK_OK] == 1)
+    np.testing.assert_array_equal(fe.pose.reshape(-1), poses[-1])
+    np.testing.assert_array_equal(fe.pose_hist[: len(frames)].cpu().numpy().reshape(len(frames), 16),
+                                  poses)
+    eng.process_frame("cam0", *frames[0], float(len(frames)), sync=False)
+    assert graphs.STATE_COPIES == copies  # steady state: nothing copied in
+
+
+def test_graphed_optimise_matches_eager(cuda):
+    """GN-CG as one graph against the eager `optimise` on one problem, then
+    replayed on a second problem of the same shape (new inputs copied into
+    the graph): node parameters within 1e-5, the three stats within rtol
+    1e-5; one capture for both calls."""
+    from densemonoslam_tpu_torch.utils import graphs
+
+    rng = np.random.default_rng(3)
+    K, C, R = 64, 60, 8
+    t = np.sort(rng.uniform(0, 60, K)).astype(np.float32)
+    g = tdg.DeformGraph(
+        pos=torch.from_numpy(rng.uniform(-2, 2, (K, 3)).astype(np.float32)).to(cuda),
+        time=torch.from_numpy(t).to(cuda), valid=torch.ones(K, dtype=torch.bool, device=cuda),
+        A=torch.eye(3, device=cuda).repeat(K, 1, 1), t=torch.zeros(K, 3, device=cuda),
+    )
+    captures = graphs.CAPTURES
+    for shift in (0.05, 0.03):
+        src = rng.uniform(-2, 2, (C, 3)).astype(np.float32)
+        dst = src + np.array([0.0, shift, 0.02], np.float32)
+        cons = tdg.Constraint(
+            src=torch.from_numpy(src).to(cuda), dst=torch.from_numpy(dst).to(cuda),
+            time=torch.from_numpy(np.floor(rng.uniform(20, 60, C)).astype(np.float32)).to(cuda),
+            valid=torch.from_numpy(rng.random(C) > 0.1).to(cuda),
+            pinned=torch.zeros(C, dtype=torch.bool, device=cuda),
+        )
+        rsrc = rng.uniform(-2, 2, (R, 3)).astype(np.float32)
+        rel = tdg.RelConstraint(
+            src=torch.from_numpy(rsrc).to(cuda), dst=torch.from_numpy(rsrc + 0.01).to(cuda),
+            src_time=torch.full((R,), 40.0, device=cuda), dst_time=torch.full((R,), 10.0, device=cuda),
+            valid=torch.ones(R, dtype=torch.bool, device=cuda),
+        )
+        frozen = g.time < 20
+        eg, es = tdg.optimise(g, cons, frozen=frozen, rel=rel)
+        gg, gs = tdg.optimise_graphed(g, cons, frozen=frozen, rel=rel)
+        torch.testing.assert_close(gg.A, eg.A, rtol=0, atol=1e-5)
+        torch.testing.assert_close(gg.t, eg.t, rtol=0, atol=1e-5)
+        for a, b in zip(gs, es):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    assert graphs.CAPTURES - captures == 1
+
+
+def test_nested_branches_count_their_launches(cuda):
+    """`graphs.branch` under capture: an IF node on the device flag, nested
+    inside another; both sides leave the outputs right for every pair of
+    flags, and the K1 launches inside the bodies count only for the
+    replays in which they ran (settled from the device counters), also
+    when the graph was dropped before the settle."""
+    import gc
+
+    from densemonoslam_tpu_torch.utils import graphs
+
+    M = torch.randn(4800, 16, device=cuda)
+    ref = tgram.gram(M)
+
+    def program(a, b, x):
+        y = x.clone()
+        g = torch.zeros(16, 16, device=cuda)
+
+        def outer():
+            y.mul_(2.0)
+
+            def inner():
+                graphs.assign((g,), (tgram.gram(M),))
+
+            graphs.branch(b, inner, "inner")
+
+        graphs.branch(a, outer, "outer")
+        return y, g
+
+    fn = graphs.GraphedFn(program)
+    x = torch.arange(4.0, device=cuda)
+    fn(True, True, x)  # the capture
+    torch.cuda.synchronize()
+    graphs.settle_counts()
+    before, runs = klaunches.total("gram"), dict(graphs.BRANCH_RUNS)
+    for a, b in [(True, True), (True, False), (False, True), (False, False), (True, True)]:
+        y, g = fn(a, b, x)
+        assert torch.equal(y, x * 2 if a else x)
+        assert torch.equal(g, ref if a and b else torch.zeros_like(ref))
+    graphs.settle_counts()
+    assert klaunches.total("gram") - before == 2
+    assert graphs.BRANCH_RUNS["outer"] - runs.get("outer", 0) == 3
+    assert graphs.BRANCH_RUNS["inner"] - runs.get("inner", 0) == 2
+    fn(True, True, x)
+    del fn
+    gc.collect()
+    graphs.settle_counts()
+    assert klaunches.total("gram") - before == 3
+    assert graphs.BRANCH_RUNS["inner"] - runs.get("inner", 0) == 3
+
+
+def test_relocalisation_poll_waits_on_frame_t_minus_16(cuda, monkeypatch):
+    """With relocalisation, the engine copies each frame's bad-frame count
+    into pinned memory behind a CUDA event; the poll every 8 frames waits
+    on the event of frame t-16 (frame 0's before there are 16), and on no
+    other, where it read the row and waited for the whole stream.  The step
+    is replaced by one that returns a stats row, as in the pacing test."""
+    seq = SyntheticSequence(num_frames=2)
+    rgb, depth = (torch.from_numpy(x).to(cuda) for x in seq.frame(0))
+    cfg = EngineConfig(max_surfels=1 << 10, open_loop=True, relocalisation=True,
+                       loop_check_interval=8)
+    eng = Engine(seq.camera, cfg, device=cuda)
+    fe = eng.frontend("cam0")
+    fe.step_fn = lambda state, *a: (state, torch.zeros(29, device=cuda))
+    waited = []
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda ev: waited.append(ev))
+    made, polls = [], {}
+    for i in range(33):
+        n = len(waited)
+        eng.process_frame("cam0", rgb, depth, float(i), sync=False)
+        made.append(fe.bad_counts[-1][0])
+        polled = [ev for ev in waited[n:] if ev not in fe.frame_events]
+        if polled:
+            polls[fe.tick] = polled
+    assert sorted(polls) == [8, 16, 24, 32]
+    for tick, evs in polls.items():
+        assert len(evs) == 1 and evs[0] is made[max(tick - 1 - 16, 0)]
+    assert fe.consecutive_bad == 0 and not fe.lost

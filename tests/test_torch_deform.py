@@ -16,6 +16,7 @@ from densemonoslam_tpu.mapping import deformation as jdg
 from densemonoslam_tpu.ops.pallas import deform as jpallas
 from densemonoslam_tpu_torch.mapping import deformation as tdg
 from densemonoslam_tpu_torch.ops import deform as tdeform
+from densemonoslam_tpu_torch.utils import launches
 
 torch.set_num_threads(2)
 
@@ -238,10 +239,10 @@ def test_deform_map_reference_matches_xla_and_pallas(rng):
         jg.pos, jg.time, jg.valid, jg.A, jg.t, jnp.asarray(data[:P, 0:3]),
         jnp.asarray(data[:P, 11]), jnp.asarray(data[:P, 8:11]), interpret=True,
     )
-    before = tdeform.LAUNCHES
+    before = launches.total("deform")
     out = tdeform.deform_map(torch.from_numpy(data.copy()), torch.tensor(count),
                              tdg.graph_from_numpy(g, "cpu")).numpy()
-    assert tdeform.LAUNCHES == before  # the CPU takes the plain version, no launch
+    assert launches.total("deform") == before  # the CPU takes the plain version, no launch
     np.testing.assert_allclose(out, j_xla, atol=2e-6)
     alive = np.zeros(len(data), bool)
     alive[:count] = data[:count, 3] > 0

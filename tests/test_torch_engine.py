@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from densemonoslam_tpu_torch import cli
+from densemonoslam_tpu_torch import cli, entry
 from densemonoslam_tpu_torch.config import CameraConfig, EngineConfig
 from densemonoslam_tpu_torch.engine import Engine
 from densemonoslam_tpu_torch.eval import ate_rmse
@@ -143,9 +143,11 @@ def _example(name: str):
         lambda: _example("torch_train_depthnet").train(),
         lambda: _example("torch_train_depthnet_street").train(),
         lambda: _example("torch_run_multihost").main([]),
+        lambda: entry.entry(),
     ],
     ids=["engine", "init_state", "pixel_grid", "depth_predictor", "sparse_tracker",
-         "empty_map", "cli", "train_depthnet", "train_depthnet_street", "run_multihost"],
+         "empty_map", "cli", "train_depthnet", "train_depthnet_street", "run_multihost",
+         "entry"],
 )
 def test_entry_points_default_to_cuda(make):
     """Without `device=` the entry points run on the card: with no card

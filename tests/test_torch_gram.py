@@ -10,6 +10,7 @@ import torch
 
 from densemonoslam_tpu.ops.pallas.gram import gram_pallas
 from densemonoslam_tpu_torch.ops import gram as tgram
+from densemonoslam_tpu_torch.utils import launches
 
 torch.set_num_threads(2)
 
@@ -51,6 +52,6 @@ def test_gram_rejects_unsupported_input(M):
 def test_gram_cpu_path_launches_no_kernel(rng):
     """On a CPU tensor the wrapper takes the plain version and counts no
     launch (the count is the proof that a GPU run used the kernel)."""
-    before = tgram.LAUNCHES
+    before = launches.total("gram")
     tgram.gram(torch.from_numpy(rng.normal(0, 1, (300, 16)).astype(np.float32)))
-    assert tgram.LAUNCHES == before
+    assert launches.total("gram") == before

@@ -63,15 +63,29 @@ NO_COUNTERPART = {
     },
     "loops.py": {
         "_make_local_loop": "a jax.jit factory cached per shape; the port runs the local loop "
-                            "eagerly (loops.py:try_local_loop)",
+                            "op by op around its graphed GN-CG until ROADMAP Queue 1 step 17 "
+                            "captures it as a CUDA graph (loops.py:try_local_loop)",
         "_make_hybrid_loop": "a jax.jit factory cached per shape; the port runs the hybrid loop "
-                             "eagerly (loops.py:apply_hybrid_loop)",
+                             "op by op around its graphed GN-CG until ROADMAP Queue 1 step 17 "
+                             "captures it as a CUDA graph (loops.py:apply_hybrid_loop)",
     },
     "engine.py": {
         "_intensity_and_depth": "one jitted program for luma and metric depth; the port's step "
                                 "does both as eager ops",
         "_hist_append": "the jitted history scatter; the port's Frontend._flush_hist does it "
                         "as one indexed write per tensor",
+    },
+}
+
+# JAX module -> {the jitted program: (where the JAX package compiles it,
+# the port's CUDA graph of it)}: the programs the JAX package compiles into
+# one device program per call, which the port captures and replays on the
+# card (`utils/graphs.py`)
+COMPILED = {
+    "step.py": {"make_step": ("jax.jit(step, donate_argnums=(0,))", "step.py:make_graphed_step")},
+    "mapping/deformation.py": {
+        "optimise": ('@functools.partial(jax.jit, static_argnames=("iters", "cg_iters"))',
+                     "mapping/deformation.py:optimise_graphed"),
     },
 }
 
@@ -173,6 +187,18 @@ def test_tables_name_real_gaps():
     for module, names in COUNTERPARTS.items():
         for name, target in names.items():
             assert _resolves(target), f"{module}:{name} -> {target} does not exist"
+
+
+@pytest.mark.parametrize("module", sorted(COMPILED))
+def test_compiled_programs_have_graphs(module):
+    """Each program the JAX package jits as one device program per call
+    (the jit where the JAX module has it, right before the program's `def`
+    or around its returned step) has a captured CUDA graph in the port."""
+    source = (JAX_PKG / module).read_text()
+    for name, (jit, target) in COMPILED[module].items():
+        assert jit in source, f"{module}: no `{jit}` for {name}"
+        assert name in _defined(JAX_PKG / module)
+        assert _resolves(target), f"{module}:{name} -> {target} does not exist"
 
 
 def _example_names() -> list:

@@ -52,24 +52,27 @@ def _out_keys(script: str) -> list:
 
 def test_profile_stages_twin():
     """`torch_profile_stages.py --platform cpu` at 64x48: exit 0 and one row
-    per stage of `profile_stages.py`, in its order."""
+    per stage of `profile_stages.py`, in its order, then the port's added
+    row, the graphed full step (not measured on the CPU)."""
     env = dict(os.environ, OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, str(EXAMPLES / "torch_profile_stages.py"), "--platform", "cpu",
          "--width", "64", "--height", "48", "--frames", "4"],
         capture_output=True, text=True, timeout=120, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    rows = [line.split()[0] for line in proc.stdout.splitlines()[1:] if line.strip()]
+    rows = [line[:20].strip() for line in proc.stdout.splitlines()[1:] if line.strip()]
     want = _out_keys("profile_stages.py")
     assert want == ["preprocess", "model_pyramid", "track_gn", "splat_render", "fuse+place",
                     "nid", "FULL_STEP"]
-    assert rows[:len(want) + 1] == [*want, "sum(stages)"]
+    assert rows[:len(want) + 2] == [*want, "full step (graphed)", "sum(stages)"]
     assert "device ms: not measured (CPU)" in proc.stdout and "platform=cpu" in proc.stdout
 
 
 def test_profile_closure_twin(capsys):
     """`torch_profile_closure.main` on a 1<<15-row map at 160x120: every
-    stage of `profile_closure.py`, timed, and the graph K2 would apply."""
+    stage of `profile_closure.py`, timed, and the graph K2 would apply; the
+    port's added row, the graphed GN-CG, is named and not measured on the
+    CPU."""
     mod = _example("torch_profile_closure")
     res = mod.main(["--platform", "cpu"], n_surfels=1 << 14, capacity=1 << 15, width=160,
                    height=120, reps=1)
@@ -78,6 +81,7 @@ def test_profile_closure_twin(capsys):
     assert all(wall > 0 and dev is None for wall, dev in res["stages"].values())
     out = capsys.readouterr().out
     assert all(name in out for name in want) and "closure (loops.try_local_loop)" in out
+    assert "GN-CG (graphed)" in out and "GN-CG (graphed)" not in res["stages"]
     state = mod.build_state(1 << 12, 1 << 13, 160, 120, device="cpu")
     assert int(state.map_count) == 1 << 12
     assert int((state.map_data[:, 12] == 10.0).sum()) == 1 << 11  # the inactive half

@@ -23,15 +23,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from densemonoslam_tpu_torch.ops import deform, gram  # noqa: E402
+from densemonoslam_tpu_torch.utils import launches  # noqa: E402
 
 
 KEPT = ("ate_mm", "loops_timed", "loops_all", "surfels")
 
 
-def _counted(fn, module):
+def _counted(fn, kernel, by_shape=False):
     """`fn` as a launch the leg's launch checks count."""
     def call(*args):
-        module.LAUNCHES += 1
+        launches.add(kernel, tuple(args[0].shape) if by_shape else None)
         return fn(*args)
     return call
 
@@ -40,10 +41,10 @@ def main() -> int:
     smi = cs.phase_device()
     grams = {
         "current": gram.gram_cuda,
-        "previous": _counted(cs.prev_gram, gram),
-        "cuBLAS": _counted(gram.gram_reference, gram),
+        "previous": _counted(cs.prev_gram, "gram", by_shape=True),
+        "cuBLAS": _counted(gram.gram_reference, "gram", by_shape=True),
     }
-    deforms = {"current": deform.deform_map_cuda, "previous": _counted(cs.prev_deform, deform)}
+    deforms = {"current": deform.deform_map_cuda, "previous": _counted(cs.prev_deform, "deform")}
     pairs = [("current", "current"), ("previous", "current"), ("current", "previous"),
              ("previous", "previous"), ("cuBLAS", "current")]
     rows = []

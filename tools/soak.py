@@ -39,7 +39,7 @@ from densemonoslam_tpu_torch.config import EngineConfig  # noqa: E402
 from densemonoslam_tpu_torch.engine import Engine  # noqa: E402
 from densemonoslam_tpu_torch.eval import ate_rmse  # noqa: E402
 from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence  # noqa: E402
-from densemonoslam_tpu_torch.ops import deform, gram  # noqa: E402
+from densemonoslam_tpu_torch.utils import launches  # noqa: E402
 
 LAP = 40  # frames per orbit lap; frame i revisits frame i % LAP
 BATCH = 100
@@ -76,7 +76,7 @@ def main(argv=None) -> int:
     fe = eng.frontend("cam0")
     fe.pose = seq.gt_pose(0).astype(np.float32)
     frames = [seq.frame(i) for i in range(LAP)]  # rendered first: host cost out
-    gram.LAUNCHES = deform.LAUNCHES = 0
+    launches.reset()
     batch_s, counts = [], []
     sync()
     t_start = t0 = time.perf_counter()
@@ -111,8 +111,8 @@ def main(argv=None) -> int:
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         frames=args.frames, total_s=total_s, ms_per_frame=1e3 * total_s / args.frames,
         batch_s=batch_s, counts=counts, early_s=early, late_s=late, ate_mm=1e3 * ate,
-        loops=fe.loops_closed, dropped=float(rows[:, 12].sum()), k1_launches=gram.LAUNCHES,
-        k2_launches=deform.LAUNCHES, checks=checks,
+        loops=fe.loops_closed, dropped=float(rows[:, 12].sum()), k1_launches=launches.total("gram"),
+        k2_launches=launches.total("deform"), checks=checks,
     )
     print(json.dumps(summary), flush=True)
     return 0 if all(checks.values()) else 1
