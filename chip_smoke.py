@@ -6,8 +6,9 @@ Phases (any failure raises, so the exit code is not 0):
 
 0. device: requires CUDA, prints the card's name and power limit, builds the
    hand-written kernels from `densemonoslam_tpu_torch/csrc/` with nvcc (one
-   process per source, started together), K1, K2 and the IF-node condition
-   setter of the captured programs (`graph_if.cu`);
+   process per source, started together), K1, K2, the IF-node condition
+   setter of the captured programs (`graph_if.cu`) and the step's stage
+   stamp (`stamp.cu`);
 1. kernel K1 (Gram reduction) against its plain PyTorch version at the
    tracking shapes: f64 agreement, zero-padding invariance, bit-identical
    reruns, one device kernel per call, and per shape the device times of
@@ -29,7 +30,9 @@ Phases (any failure raises, so the exit code is not 0):
    replays), captures, replays and state copies (none in the timed
    frames), capture seconds, poses against the eager run's (1e-4 m), both
    ATEs < 10 mm, K1 launches through replays equal to the eager run's; then
-   an IF node against the plain `if` and its device time;
+   an IF node against the plain `if` and its device time, and the stage
+   stamp against the CPU's ring (tick tags equal, each frame's times in
+   stamp order, ticks past the ring's length) and its device time;
 3b. the odometry leg: `examples/torch_run_synthetic.py` at 640x480 on its
    orbit, 30 frames: frame-to-frame tracking (5 levels; fps, ATE < 20 mm, no
    failure, K1 launches by shape, device-busy ms per tracked frame under
@@ -118,7 +121,8 @@ Phases (any failure raises, so the exit code is not 0):
 
 Each leg sets every launch count to 0 just before it and reads the counts
 just after; K1's counts are also kept per (P, C).  The IF-node condition
-setter's launches are those of phase 3a's two graphed runs.  A kernel's time is the
+setter's launches are those of phase 3a's two graphed runs; the stage
+stamp's are those of every leg that runs the engine's step.  A kernel's time is the
 CUDA-event time of back-to-back calls queued behind a spin kernel (the
 kernels and the gaps between them); its launches per call are counted in a
 CUDA graph of one call.
@@ -164,7 +168,7 @@ from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
 from densemonoslam_tpu_torch.ops import cuda_build, deform, gram, preprocess, reductions
 from densemonoslam_tpu_torch.tracking import odometry
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
-from densemonoslam_tpu_torch.utils import graphs
+from densemonoslam_tpu_torch.utils import graphs, timer
 from densemonoslam_tpu_torch.utils import launches as klaunches
 
 # the first is the kernels line's headline shape (the open loop's finest level)
@@ -262,7 +266,7 @@ def _device_ops(prof) -> list:
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("frame.", "loop."))]
+            and not e.name.startswith(("frame", "loop.", "sparse.", "host.read"))]
 
 
 def _top_device_ops(prof, n: int = 10) -> list:
@@ -357,7 +361,7 @@ def phase_device() -> str:
     log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libs = cuda_build.build("gram", "deform", "graph_if", "prev/gram", "prev/deform")
+    libs = cuda_build.build("gram", "deform", "graph_if", "stamp", "prev/gram", "prev/deform")
     log(f"[phase 0] built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -432,9 +436,11 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """K1's and K2's launches since the last `reset_counts`, settled."""
+    """K1's, K2's and the stage stamp's launches since the last
+    `reset_counts`, settled."""
     settle()
-    return dict(gram=klaunches.total("gram"), deform=klaunches.total("deform"))
+    return dict(gram=klaunches.total("gram"), deform=klaunches.total("deform"),
+                stamp=klaunches.total("stamp"))
 
 
 def by_shape() -> dict:
@@ -491,7 +497,7 @@ def phase_slam() -> dict:
         return time.perf_counter() - t0
 
     dt, syncs = _count_syncs(timed)
-    launches, shapes = counts()["gram"], by_shape()
+    launches, shapes, stamps = counts()["gram"], by_shape(), counts()["stamp"]
     peak = torch.cuda.max_memory_allocated()
 
     stats = torch.stack(fe.stats_log).cpu().numpy()
@@ -535,7 +541,7 @@ def phase_slam() -> dict:
     log(f"[phase 2] compact of the {cfg.max_surfels}-row map: first call "
         f"{samples[0]:.2f} ms, then median {statistics.median(samples[1:]):.2f} ms "
         f"(min {min(samples[1:]):.2f}, max {max(samples[1:]):.2f}) over 5")
-    return dict(launches=launches, shapes=shapes, engine=eng, frames=frames)
+    return dict(launches=launches, shapes=shapes, stamps=stamps, engine=eng, frames=frames)
 
 
 def phase_profile(eng, frames) -> None:
@@ -598,6 +604,7 @@ def _open_loop_run(kind: str, camera, seq, frames) -> dict:
     out = dict(
         wall_ms=1e3 * dt / N_TIMED, event_ms=start.elapsed_time(end) / N_TIMED, syncs=syncs,
         launches=counts()["gram"], shapes=by_shape(), ifs=klaunches.total("graph_if"),
+        stamps=counts()["stamp"],
         captures=graphs.CAPTURES - g0[0], replays=graphs.REPLAYS - g0[1],
         copies=graphs.STATE_COPIES - g0[2], branches=_runs_since(runs0),
     )
@@ -664,6 +671,62 @@ def _if_node_check() -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
+
+def _stamp_check() -> dict:
+    """`csrc/stamp.cu` against its plain version, the CPU `StageRing`: both
+    rings stamped with the same ticks and slots, ticks past the ring's
+    length included (their rows wrap onto earlier frames'); the tick tags
+    equal, each row's times in the order its stamps were taken, and the
+    frames both read as complete (`StageRing.intervals`) the same.  Then the
+    device time of one stamp (a graph of 50, replayed behind a spin kernel)
+    beside the CPU ring's write."""
+    slots, n_ring = 7, timer.RING_FRAMES
+    card, plain = timer.StageRing(slots), timer.StageRing(slots)
+    rng = np.random.default_rng(7)
+    ticks = [0, 1, 2, 5, n_ring - 1, n_ring, n_ring + 1, n_ring + 5, 2 * n_ring + 2,
+             3 * n_ring - 1, 5 * n_ring + 1]
+    order = []  # (row, tick, slot) in the order the stamps were taken
+    for k in ticks:
+        taken = np.sort(rng.choice(slots, size=int(rng.integers(1, slots + 1)), replace=False))
+        if k % 3 == 0:
+            taken = np.arange(slots)  # some frames take every stamp
+        for slot in taken.tolist():
+            card.stamp(slot, torch.tensor(k, dtype=torch.int64, device="cuda"))
+            plain.stamp(slot, torch.tensor(k, dtype=torch.int64))
+            order.append((k % n_ring, k, slot))
+    a, b = card.read(), plain.read()
+    tag_err = int(np.abs(a[..., 1] - b[..., 1]).max())
+    if tag_err != 0:
+        raise AssertionError(f"stamp: tick tags differ from the CPU ring's by up to {tag_err}")
+    for row in sorted({r for r, _, _ in order}):
+        # the stamps that kept their slot, in the order they were taken
+        kept = [(k, slot) for r, k, slot in order if r == row and a[row, slot, 1] == k]
+        t = np.array([a[row, slot, 0] for _, slot in kept])
+        if not (t > 0).all() or (np.diff(t) < 0).any():
+            raise AssertionError(f"stamp: row {row}'s times out of stamp order: {kept} {t}")
+    for lo, hi in ((0, slots - 1), (1, 3), (2, 5)):
+        ka = [k for k, _ in card.intervals(lo, hi, a)]
+        kb = [k for k, _ in plain.intervals(lo, hi, b)]
+        if ka != kb:
+            raise AssertionError(f"stamp: frames with slots {lo} and {hi}: {ka} != {kb}")
+    tick = torch.zeros((), dtype=torch.int64, device="cuda")
+    ring = timer.StageRing(slots)
+    ring.allocate(tick.device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for j in range(50):
+            ring.stamp(j % slots, tick)
+    ms = device_ms(g.replay, n=20) / 50
+    cpu_tick = torch.zeros((), dtype=torch.int64)
+    plain_ms = call_ms(lambda: plain.stamp(3, cpu_tick))
+    b_ms, b_by = bound_ms(24, 0)  # the 8-byte tick read, the 16-byte stamp written
+    log(f"[graphs] stage stamp against the CPU ring: {len(order)} stamps over {len(ticks)} "
+        f"ticks (up to {ticks[-1]}, ring {n_ring} frames), tick tags equal, each row's times "
+        f"in stamp order; device {ms * 1e3:.3f} us per stamp (from a graph of 50), CPU ring "
+        f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.6f} us ({b_by})")
+    return dict(max_abs_err=float(tag_err), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
 def phase_graphs() -> dict:
     """The open-loop leg eager and graphed in alternating pairs (eager,
     graphed, graphed, eager; `tools/bench_pairs.py`'s method): wall and
@@ -724,8 +787,10 @@ def phase_graphs() -> dict:
         raise AssertionError("graphed timed frames: a capture, a state copy or a frame "
                              f"without its replay: {[(g['captures'], g['replays'], g['copies']) for g in graphed]}")
     if_check = _if_node_check()
+    stamp_check = _stamp_check()
     return dict(runs=runs, diff=diff, bound=bound, eager_diff=eager_diff, if_check=if_check,
-                ifs=sum(g["ifs"] for g in graphed))
+                ifs=sum(g["ifs"] for g in graphed), stamp_check=stamp_check,
+                stamps=sum(r["stamps"] for _, r in runs))
 
 
 def _deform_checks(label: str, data: torch.Tensor, count: torch.Tensor, graph) -> dict:
@@ -1222,7 +1287,7 @@ def phase_relocalisation() -> dict:
         n0, r0, s0 = counts()["gram"], sum(in_reloc), starved()
         eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
         per_frame.append((counts()["gram"] - n0, sum(in_reloc) - r0, starved() - s0))
-    launches, shapes = counts()["gram"], by_shape()
+    launches, shapes, stamps = counts()["gram"], by_shape(), counts()["stamp"]
     err = float(np.linalg.norm(fe.pose[:3, 3] - seq.gt_pose(15)[:3, 3]))
     log(f"[reloc] {ferns} fern keyframes; {len(calls)} relocalisation attempts, "
         f"{sum(calls)} accepted; final pose {err:.3f} m from the map's last ground-truth pose")
@@ -1239,7 +1304,7 @@ def phase_relocalisation() -> dict:
         raise AssertionError("an accepted relocalisation launched no gram kernel")
     if not err < 1.0:
         raise AssertionError(f"pose still {err:.2f} m from the map")
-    return dict(launches=launches, shapes=shapes)
+    return dict(launches=launches, shapes=shapes, stamps=stamps)
 
 
 def _street_sequence() -> StreetSequence:
@@ -2184,8 +2249,8 @@ def check_collab(solo: dict, ranks: list) -> dict:
     for ok, what in checks:
         if not ok:
             raise AssertionError(f"collab: {what}")
-    launches = dict(gram=solo["launches"]["gram"] + sum(r["launches"]["gram"] for r in ranks),
-                    deform=solo["launches"]["deform"] + sum(r["launches"]["deform"] for r in ranks))
+    launches = {k: solo["launches"][k] + sum(r["launches"][k] for r in ranks)
+                for k in ("gram", "deform", "stamp")}
     shapes: dict = {}
     for r in [solo, *ranks]:
         for key, n in r["shapes"].items():
@@ -2485,13 +2550,14 @@ def phase_app() -> dict:
     # one 640x480 frame takes the host ~0.4 s to render: a spawned pool
     with multiprocessing.get_context("spawn").Pool(min(6, os.cpu_count() or 1)) as pool:
         frames = pool.map(seq.frame, range(MULTI_OFFSET + n))
-    launches, shapes, fps = dict(gram=0, deform=0), {}, {}
+    launches, shapes, fps = dict(gram=0, deform=0, stamp=0), {}, {}
 
     def count(label):
         settle()
         k1, k2 = klaunches.total("gram"), klaunches.total("deform")
         launches["gram"] += k1
         launches["deform"] += k2
+        launches["stamp"] += klaunches.total("stamp")
         for shape, k in klaunches.by_shape("gram").items():
             shapes[shape] = shapes.get(shape, 0) + k
         log(f"[app] {label}: K1 {k1} launches, K2 {k2}")
@@ -2980,6 +3046,22 @@ def run(street: HostRender) -> int:
             "plain_ms": gph["if_check"]["plain_ms"],
             "bound_ms": gph["if_check"]["bound_ms"],
             "bound_by": gph["if_check"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "stamp",
+            "route": "cuda",
+            "source": "densemonoslam_tpu_torch/csrc/stamp.cu",
+            "replaces": None,
+            "launches": slam["stamps"] + gph["stamps"] + odo["launches"]["stamp"]
+            + closed["launches"]["stamp"] + reloc["stamps"] + mono["launches"]["stamp"]
+            + two["launches"]["stamp"] + collab["launches"]["stamp"] + app["launches"]["stamp"]
+            + train["launches"]["stamp"] + bench["launches"]["stamp"],
+            "max_abs_err": gph["stamp_check"]["max_abs_err"],
+            "ms": gph["stamp_check"]["ms"],
+            "plain_ms": gph["stamp_check"]["plain_ms"],
+            "bound_ms": gph["stamp_check"]["bound_ms"],
+            "bound_by": gph["stamp_check"]["bound_by"],
             "library_ms": None,
         },
     ]}))

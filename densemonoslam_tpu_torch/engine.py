@@ -32,6 +32,17 @@ initial guess.  Frontends that share a map fuse into the one map tensor:
 each step installs the map's current tensors first, and a compaction or a
 merge hands its new tensors to every member frontend.
 
+Tracing (`utils.timer`): each frame's work is a tree of spans under the
+root `frame` (`frame.upload`, `frame.depth_cnn` with device events,
+`frame.sparse_track`, `frame.dense_step`, `frame.pace`, `frame.compact`,
+and at the cadence `loop.ferns`, `loop.check`, `loop.intermap`), each
+keyed by the frame id, the session tick that `process_frame` sets when it
+starts; they are profiler ranges, and records while the recorder is on.
+`Frontend.loop_checks` counts the loop closures a camera attempted (each
+`try_local_loop` call and each hybrid closure of the sparse tracker's loop
+pair), beside `loops_closed`, those accepted.  `stage_ms` reads the device
+times of a camera's step stages, stamped inside its graph.
+
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
 
@@ -43,7 +54,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from densemonoslam_tpu_torch import loops as loopsmod
 from densemonoslam_tpu_torch import step as stepmod
@@ -54,7 +64,7 @@ from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import preprocess, splat
 from densemonoslam_tpu_torch.tracking import odometry, registration
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
-from densemonoslam_tpu_torch.utils import graphs
+from densemonoslam_tpu_torch.utils import graphs, timer
 from densemonoslam_tpu_torch.utils.stats import SessionStats
 from densemonoslam_tpu_torch.utils.timer import Stopwatch
 
@@ -101,7 +111,8 @@ class Frontend:
     bad_counts: Optional[collections.deque] = None
     stats: SessionStats = dataclasses.field(default_factory=SessionStats)
     fern_state: Optional[loopsmod.FernLoopState] = None
-    loops_closed: int = 0
+    loop_checks: int = 0  # loop closures attempted: local checks and hybrid closures
+    loops_closed: int = 0  # and accepted
     last_loop_info: Optional[loopsmod.LoopInfo] = None
     last_loop_graph: Optional[dg.DeformGraph] = None  # of the last accepted closure
     sparse_tracker: Optional[SparseTracker] = None
@@ -248,6 +259,7 @@ class Engine:
         self.timer = Stopwatch()
         self._compact_interval = 64
         self._step_cache: Dict[Tuple, object] = {}
+        self._stages: Dict[str, Optional[timer.StageRing]] = {}  # each camera's step stamps
         self._depth_predictor = None
 
     def set_depth_predictor(self, predictor) -> None:
@@ -256,19 +268,20 @@ class Engine:
         self._depth_predictor = predictor
 
     def _step_for(self, camera: CameraConfig, sensor_id: int, name: str):
-        """The step of a camera geometry, sensor and the current config, built
-        once per distinct key: a config swap back to an earlier value reuses
-        its step.  On the card each camera has its own (its graph holds that
-        camera's state), compiled at its first frame."""
+        """The step of camera `name` for its geometry, sensor and the current
+        config, built once per distinct key: a config swap back to an earlier
+        value reuses its step.  Each camera has its own: on the card its
+        graph holds that camera's state, compiled at its first frame, and
+        everywhere its stage stamps are that camera's."""
         res = camera.resolution
-        key = (camera.intrinsics, res.width, res.height, sensor_id, self.config)
-        if self.device.type == "cuda":
-            key += (name,)
+        key = (camera.intrinsics, res.width, res.height, sensor_id, self.config, name)
         if key not in self._step_cache:
             self._step_cache[key] = stepmod.make_device_step(
                 camera.intrinsics, res.height, res.width, self.config, sensor_id, self.device
             )
-        return self._step_cache[key]
+        step = self._step_cache[key]
+        self._stages[name] = getattr(step, "stages", None)  # a wrapped step may have none
+        return step
 
     def _recompile(self, fe: Frontend) -> None:
         """Drop camera `fe`'s graphs: its next frame captures its step again,
@@ -372,7 +385,7 @@ class Engine:
         the loop correction twice)."""
         fe.last_loop_graph = graph
         n = len(fe.ts_log)
-        with record_function("loop.rewrite_poses"):
+        with timer.span("loop.rewrite_poses"):
             if n and rewrite_history:
                 fe.pose_hist[:n] = dg.apply_to_poses(graph, fe.pose_hist[:n], fe.hist_times[:n])
             if fe.fern_state is not None:
@@ -380,7 +393,7 @@ class Engine:
                 fe.fern_state = fe.fern_state._replace(
                     db=db._replace(poses=dg.apply_to_poses(graph, db.poses, db.times))
                 )
-        with record_function("loop.compact"):
+        with timer.span("loop.compact"):
             self._compact_now(be)
 
     def map_of(self, map_name: str) -> sm.SurfelMap:
@@ -402,12 +415,26 @@ class Engine:
         takes depth from the attached depth CNN (`predict_depth`).
         `in_pose` (camera-to-world) bypasses tracking (ground-truth
         injection).  With `sync=False` the stats are only logged and an
-        empty dict returns."""
+        empty dict returns.  The frame's spans carry the session tick it
+        starts at as their frame id."""
+        timer.set_frame(self.global_tick)
+        with timer.span("frame"):
+            return self._frame(name, rgb, depth_raw, timestamp, in_pose, sync, cluster)
+
+    def _frame(self, name, rgb, depth_raw, timestamp, in_pose, sync, cluster):
         fe = self.frontends[name]
         t0 = self.timer.tick("frame_dispatch")
         cfg = self.config
         dev = self.device
-        rgb = torch.as_tensor(rgb, device=dev)
+        with timer.span("frame.upload"):
+            rgb = torch.as_tensor(rgb, device=dev)
+            if depth_raw is not None:
+                depth_raw = torch.as_tensor(depth_raw, device=dev).to(torch.float32)
+            use_in = in_pose is not None
+            if use_in:
+                pose_in = torch.as_tensor(np.asarray(in_pose, np.float32), device=dev)
+            else:
+                pose_in = torch.eye(4, dtype=torch.float32, device=dev)
         if depth_raw is None:
             # monocular: the depth CNN supplies depth BEFORE tracking
             if not (cfg.predict_depth and self._depth_predictor is not None):
@@ -415,14 +442,8 @@ class Engine:
                     "no depth given and no depth predictor attached "
                     "(set predict_depth=True and call set_depth_predictor)"
                 )
-            with record_function("frame.depth_cnn"):
-                depth_raw = self._depth_predictor.predict(rgb)
-        depth_raw = torch.as_tensor(depth_raw, device=dev).to(torch.float32)
-        use_in = in_pose is not None
-        if use_in:
-            pose_in = torch.as_tensor(np.asarray(in_pose, np.float32), device=dev)
-        else:
-            pose_in = torch.eye(4, dtype=torch.float32, device=dev)
+            with timer.span("frame.depth_cnn", device=dev.type == "cuda"):
+                depth_raw = self._depth_predictor.predict(rgb).to(dev, torch.float32)
         if cfg.orb_tracking and not use_in:
             # the sparse tracker supplies the pose: device values, consumed
             # by the step without a host branch
@@ -433,7 +454,7 @@ class Engine:
             map_data=be.map_data, map_count=be.map_count,
             tick=torch.full((), self.global_tick, dtype=torch.int64, device=dev),
         )
-        with record_function("frame.dense_step"):
+        with timer.span("frame.dense_step"):
             fe.state, stats = fe.step_fn(
                 fe.state, rgb, depth_raw, pose_in, use_in, cfg.fusion_weight_multiplier,
                 float(cluster),
@@ -447,13 +468,15 @@ class Engine:
         fe.ts_log.append(timestamp)
         fe.stats_log.append(stats)
         fe.tick += 1
-        self._pace(fe)
+        with timer.span("frame.pace"):
+            self._pace(fe)
         if cfg.relocalisation and dev.type == "cuda":
             self._queue_bad_count(fe, stats)
         self.timer.tock("frame_dispatch", t0)
         if fe.tick % self._compact_interval == 0:
             # reclaims culled slots and re-partitions [inactive..., active...]
-            self._compact_now(be)
+            with timer.span("frame.compact"):
+                self._compact_now(be)
         # lost-tracking state machine: the bad-frame counter lives on the
         # device; poll it at the loop-check cadence from a frame two cadences
         # back (long finished, so the read does not drain the queue), or
@@ -480,7 +503,7 @@ class Engine:
                 fe.fern_state = loopsmod.make_fern_state(fe.camera, cfg, device=dev)
             tracking_healthy = not (cfg.relocalisation and (fe.lost or fe.consecutive_bad > 0))
             if tracking_healthy:
-                with record_function("loop.ferns"):
+                with timer.span("loop.ferns"):
                     fe.fern_state, _, _, _ = loopsmod.update_ferns(
                         fe.fern_state, rgb, depth_raw / cfg.depth_factor,
                         preprocess.rgb_to_intensity(rgb), fe.state.pose,
@@ -489,9 +512,11 @@ class Engine:
                         factor=loopsmod.fern_factor(cfg), max_capacity=cfg.fern_db_max,
                     )
             if self.global_tick > cfg.time_delta and tracking_healthy:
-                fe.state, linfo, lgraph, be.rel_bank = loopsmod.try_local_loop(
-                    fe.state, fe.camera, cfg, rel_bank=be.get_rel_bank()
-                )
+                fe.loop_checks += 1
+                with timer.span("loop.check"):
+                    fe.state, linfo, lgraph, be.rel_bank = loopsmod.try_local_loop(
+                        fe.state, fe.camera, cfg, rel_bank=be.get_rel_bank()
+                    )
                 self._set_map(be, fe.state.map_data, fe.state.map_count)
                 fe.last_loop_info = linfo
                 if linfo.closed:
@@ -500,7 +525,7 @@ class Engine:
                     self._on_loop_closed(fe, be, lgraph)
             # inter-map: another map's ferns may recognise this view
             if tracking_healthy and len(self.maps) > 1:
-                with record_function("loop.intermap"):
+                with timer.span("loop.intermap"):
                     self._try_intermap(fe, rgb, depth_raw)
         if not sync:
             return {}
@@ -559,7 +584,7 @@ class Engine:
         if fe.sparse_tracker is None:
             fe.sparse_tracker = SparseTracker(fe.camera.intrinsics, device=self.device)
             fe.sparse_tracker.pose = fe.pose
-        with record_function("frame.sparse_track"):
+        with timer.span("frame.sparse_track"):
             pose, ok = fe.sparse_tracker.track(
                 preprocess.rgb_to_intensity(rgb), depth_raw / cfg.depth_factor
             )
@@ -576,6 +601,7 @@ class Engine:
                 C = (pose_corr @ np.linalg.inv(pose_est)).astype(np.float32)
                 be = self.backend_of(fe.name)
                 fe.state = fe.state.replace(map_data=be.map_data, map_count=be.map_count)
+                fe.loop_checks += 1
                 fe.state, linfo, lgraph = loopsmod.apply_hybrid_loop(
                     fe.state, C, fe.camera, cfg, rel_bank=be.get_rel_bank()
                 )
@@ -701,19 +727,19 @@ class Engine:
         cfg = self.config
         src, dst = self.maps[src_map], self.maps[dst_map]
         T = torch.as_tensor(np.asarray(T_ab, np.float32), device=self.device)
-        with record_function("merge.maps"):
+        with timer.span("merge.maps"):
             data, count, dropped = loopsmod.merge_maps(
                 dst.map_data, dst.map_count, src.map_data, src.map_count, T
             )
             dst.dropped += dropped  # overflow is surfaced, not silent
-        with record_function("merge.compact"):
+        with timer.span("merge.compact"):
             # merge_maps does not re-sort: restore the [inactive..., active...]
             # partition before the windowed passes read the merged map
             m = sm.compact(
                 sm.SurfelMap(data=data, count=count), time=float(self.global_tick),
                 time_delta=cfg.time_delta, max_active=self._max_active(),
             )
-        with record_function("merge.members"):
+        with timer.span("merge.members"):
             if src.rel_bank is not None:
                 dst.rel_bank = loopsmod.merge_rel_banks(dst.get_rel_bank(), src.rel_bank, T)
             dst_fe = self.frontends[dst.contexts[0]]
@@ -776,6 +802,14 @@ class Engine:
         for kind, img in self.view_images(name).items():
             with open(os.path.join(out_dir, f"{prefix}_{kind}.png"), "wb") as f:
                 f.write(png_bytes(img))
+
+    def stage_ms(self, name: str) -> Dict[str, List[Tuple[int, float]]]:
+        """Device milliseconds of camera `name`'s step stages per frame, from
+        the stamps its current step took (`step.stage_ms`: ``track``,
+        ``render``, ``fuse``, ``step``, each a list of (session tick, ms));
+        one copy of the stamp ring to the host.  On the CPU, host
+        milliseconds."""
+        return stepmod.stage_ms(self._stages.get(name))
 
     def save_times(self, path: str) -> None:
         self.timer.write_csv(path)

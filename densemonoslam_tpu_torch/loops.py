@@ -22,6 +22,11 @@ tracker closes one).  The reference runs a loop as one jitted program with
 `lax.cond` gates (inactive coverage, the tracking gates, the deformation's
 acceptance); here each gate is one host read of a few device values, and
 only what a gate lets through runs.
+
+The stages are `utils.timer` spans named `loop.*` (profiler ranges, and
+records keyed by the frame while the recorder is on), and each gate's read
+is a child span `host.read`: where the card idles inside it the host
+waits for it, elsewhere in a stage the host is at work.
 """
 
 from __future__ import annotations
@@ -30,7 +35,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from densemonoslam_tpu_torch import step as stepmod
 from densemonoslam_tpu_torch.config import CameraConfig, EngineConfig
@@ -39,7 +43,7 @@ from densemonoslam_tpu_torch.mapping import ferns as fernmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import splat, warp
 from densemonoslam_tpu_torch.tracking import odometry
-from densemonoslam_tpu_torch.utils import se3
+from densemonoslam_tpu_torch.utils import se3, timer
 from densemonoslam_tpu_torch.utils.tensors import scalar
 
 
@@ -204,8 +208,8 @@ def try_local_loop(
 
     Returns (state, info, the applied graph (all-invalid when not closed),
     rel_bank).  Host reads: one per gate reached (coverage; tracking gates;
-    acceptance), plus the tracker's own starvation read.  The stages are
-    `torch.profiler` ranges named `loop.*` (free when no profiler runs)."""
+    acceptance), plus the tracker's own starvation reads; each a
+    `host.read` span inside its stage's `loop.*` span."""
     intr = camera.intrinsics
     W, H = camera.resolution.width, camera.resolution.height
     dev = state.map_data.device
@@ -220,16 +224,18 @@ def try_local_loop(
     def not_closed(*info):
         return state, LoopInfo(True, False, *info), dg.empty_graph(cfg.max_deform_nodes, dev), rel_bank
 
-    with record_function("loop.render_inactive"):
+    with timer.span("loop.render_inactive"):
         pred_in = splat.render(
             data, count, pose, intr, W, H, t_now, time_delta=cfg.time_delta,
             mode=splat.MODE_INACTIVE,
         )
-        inact_frac = float((pred_in.depth > 0).to(torch.float32).mean())  # gate 1
+        inact = (pred_in.depth > 0).to(torch.float32).mean()
+        with timer.span("host.read"):
+            inact_frac = float(inact)  # gate 1
     if not inact_frac >= cfg.loop_min_inactive_frac:
         return not_closed(inact_frac, 0.0, 0.0, 0.0)
 
-    with record_function("loop.track"):
+    with timer.span("loop.track"):
         pred_act = splat.render(
             data, count, pose, intr, W, H, t_now, time_delta=cfg.time_delta,
             mode=splat.MODE_ACTIVE, window=win,
@@ -254,13 +260,13 @@ def try_local_loop(
             & (res.icp_error <= cfg.loop_icp_err_thresh)
             & cov_ok
         )
-        go_h, inlier_h, icp_err_h = torch.stack(  # gate 2
-            [go.to(torch.float32), inlier_frac, res.icp_error]
-        ).tolist()
+        gate = torch.stack([go.to(torch.float32), inlier_frac, res.icp_error])
+        with timer.span("host.read"):
+            go_h, inlier_h, icp_err_h = gate.tolist()  # gate 2
     if not go_h > 0:
         return not_closed(inact_frac, inlier_h, icp_err_h, 0.0)
 
-    with record_function("loop.optimise"):
+    with timer.span("loop.optimise"):
         cons = _constraints_from_alignment(
             pred_act.vmap, pred_act.time, pred_in.depth, pred_in.vmap, pred_in.time,
             res.A, pose, cfg.loop_constraint_stride,
@@ -269,11 +275,12 @@ def try_local_loop(
         # anchor the old (inactive-epoch) part; deform the recent part
         frozen = graph.time < (t_f - cfg.time_delta)
         graph2, stats = dg.optimise_graphed(graph, cons, frozen=frozen, rel=rel_bank.cons)
-        cons_err = float(stats.mean_cons_error)  # gate 3
+        with timer.span("host.read"):
+            cons_err = float(stats.mean_cons_error)  # gate 3
     if not cons_err <= cfg.loop_cons_err_thresh:
         return not_closed(inact_frac, inlier_h, icp_err_h, cons_err)
 
-    with record_function("loop.apply"):
+    with timer.span("loop.apply"):
         n_src = cons.src.shape[0] // 2  # [actives..., pins...]
         dg.apply_to_map(data, count, graph2)
         new_pose = dg.apply_to_pose(graph2, pose, t_f)
@@ -316,7 +323,7 @@ def apply_hybrid_loop(
     data, count, pose = state.map_data, state.map_count, state.pose
     t_now = state.tick
     t_f = t_now.to(torch.float32)
-    with record_function("loop.hybrid_optimise"):
+    with timer.span("loop.hybrid_optimise"):
         pred_act = splat.render(
             data, count, pose, intr, W, H, t_now, time_delta=cfg.time_delta,
             mode=splat.MODE_ACTIVE, window=win,
@@ -345,16 +352,16 @@ def apply_hybrid_loop(
         frozen = graph.time < (t_f - cfg.time_delta)
         graph2, stats = dg.optimise_graphed(graph, cons, frozen=frozen, rel=rel_bank.cons)
         accept = stats.mean_cons_error <= 2.0 * cfg.loop_cons_err_thresh
-        accept_h, cons_err = torch.stack(  # the one read
-            [accept.to(torch.float32), stats.mean_cons_error]
-        ).tolist()
+        gate = torch.stack([accept.to(torch.float32), stats.mean_cons_error])
+        with timer.span("host.read"):
+            accept_h, cons_err = gate.tolist()  # the one read
     info = LoopInfo(
         attempted=True, closed=accept_h > 0, inactive_frac=0.0, inlier_frac=1.0,
         icp_error=0.0, cons_error=cons_err,
     )
     if not accept_h > 0:
         return state, info, dg.empty_graph(cfg.max_deform_nodes, dev)
-    with record_function("loop.apply"):
+    with timer.span("loop.apply"):
         dg.apply_to_map(data, count, graph2)
         new_pose = C @ pose
         _reactivate_in_view(data, count, new_pose, t_now, intr, W, H, depth_max=cfg.max_depth)

@@ -27,7 +27,8 @@ from collections import Counter
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from densemonoslam_tpu_torch.utils import timer
 
 COUNTS: Counter = Counter()
 
@@ -102,7 +103,7 @@ def all_gather(t: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     n = dist.get_world_size(group)
     _count("all_gather", t)
     t = t.contiguous()
-    with record_function("collective.all_gather"):
+    with timer.span("collective.all_gather"):
         if backend == "nccl":
             out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
             dist.all_gather_into_tensor(out, t, group=group)
@@ -123,7 +124,7 @@ def all_reduce_sum(t: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     _backend(t, group, "all_reduce")
     _count("all_reduce", t)
     out = t.clone()
-    with record_function("collective.all_reduce"):
+    with timer.span("collective.all_reduce"):
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
@@ -132,6 +133,6 @@ def broadcast(t: torch.Tensor, src: int, group: dist.ProcessGroup) -> torch.Tens
     """`t` of the group's rank `src`, written into `t` on every rank."""
     _backend(t, group, "broadcast")
     _count("broadcast", t)
-    with record_function("collective.broadcast"):
+    with timer.span("collective.broadcast"):
         dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
     return t

@@ -15,13 +15,21 @@ step as one CUDA graph, each branch a conditional IF node, and replays it
 every frame, the map updated in place (the reference donates it).
 `make_step` returns the same step to run op by op: on the CPU, where each
 branch is a Python `if` whose read of its predicate is the step's only
-host read, and on the card for per-stage timings.
+host read, and on the card where a caller wants it uncaptured.
+
+The step stamps its stages (`utils.timer.StageRing`, the step's
+`stages`): at its start, after tracking, at the render branch's start and
+end, at the fuse branch's start and end, and at its end, each stamp keyed
+by the frame's tick.  On the card a stamp is a one-thread kernel, captured
+into the graph and its IF bodies like any other, so every replay times its
+own stages; on the CPU it is the host's clock.  `stage_ms` turns a ring
+into per-frame stage times; `Engine.stage_ms` reads a camera's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +40,7 @@ from densemonoslam_tpu_torch.mapping import keyframe as kfmod
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, splat
 from densemonoslam_tpu_torch.tracking import odometry
-from densemonoslam_tpu_torch.utils import graphs, se3
+from densemonoslam_tpu_torch.utils import graphs, se3, timer
 from densemonoslam_tpu_torch.utils.tensors import scalar
 
 
@@ -86,6 +94,11 @@ STAT_POSE0 = 13  # rows 13:29 carry the tracked pose, row-major 4x4
 N_STATS_TOTAL = N_STATS + 16
 
 MODEL_INVALID_AGE = 1 << 20  # marks the stored model as unusable
+
+# the step's stage stamps, in the order a frame that fuses takes them
+STAGES = ("start", "tracked", "render_start", "fuse_start", "fuse_end", "render_end", "end")
+(_START, _TRACKED, _RENDER_START, _FUSE_START, _FUSE_END, _RENDER_END,
+ _END) = range(len(STAGES))
 
 
 def init_state(
@@ -145,8 +158,10 @@ def make_step(
 
     `step(state, rgb, depth_raw, in_pose, use_in_pose, weight_mult,
     cluster_id=0.0) -> (new_state, stats[29])`.  The map tensor of `state`
-    is updated in place (the reference donates it)."""
+    is updated in place (the reference donates it).  `step.stages` is the
+    ring its stage stamps go to."""
     cfg = config
+    stages = timer.StageRing(len(STAGES))
     levels = cfg.pyramid_levels
     iterations = cfg.iterations_for_levels()
     pss = cfg.icp_weight_per_sensor
@@ -173,6 +188,7 @@ def make_step(
         use_in_pose = scalar(use_in_pose, torch.bool, dev)
         weight_mult = scalar(weight_mult, torch.float32, dev)
         t_now = state.tick
+        stages.stamp(_START, t_now)
         # ---------------- preprocess ----------------------------------
         depth_track = preprocess.metricise_depth(
             depth_raw, cfg.depth_factor, max(cfg.max_depth, cfg.depth_cutoff)
@@ -197,6 +213,7 @@ def make_step(
             iterations=iterations, icp_weight=icp_weight, rgb_only=cfg.rgb_only,
             pyramid=cfg.pyramid, use_so3=cfg.so3, row_stride=cfg.track_row_stride,
         )
+        stages.stamp(_TRACKED, t_now)
         tracked_pose = state.model_pose @ res.A
         tracking_ok = ~res.failed & (state.model_age < MODEL_INVALID_AGE)
         new_pose = torch.where(first | ~tracking_ok, state.pose, tracked_pose)
@@ -290,6 +307,7 @@ def make_step(
         )
 
         def render_branch():
+            stages.stamp(_RENDER_START, t_now)
             pred = splat.render(
                 data, count, new_pose, intr, width, height, t_now,
                 time_delta=cfg.time_delta, mode=splat.MODE_ACTIVE, window=win,
@@ -299,6 +317,7 @@ def make_step(
             model_age.zero_()
 
             def fuse_branch():
+                stages.stamp(_FUSE_START, t_now)
                 win_start = splat.active_window_start(count, N_cap, win_n)
                 blk, packed, rank, n_want, n_matched, n_culled = fusion.fuse_window(
                     splat.window_rows(data, win_start, win_n), win_start, count, pred,
@@ -326,8 +345,10 @@ def make_step(
                 )
                 graphs.assign((pred_int, pred_v, pred_n, pred_d),
                               (comp.intensity, comp.vmap, comp.nmap, comp.depth))
+                stages.stamp(_FUSE_END, t_now)
 
             graphs.branch(do_fuse, fuse_branch, "fuse")
+            stages.stamp(_RENDER_END, t_now)
 
         graphs.branch(need_render, render_branch, "render")
         model_rel = torch.where(
@@ -361,9 +382,32 @@ def make_step(
             ]),
             new_pose.reshape(-1),
         ])
+        stages.stamp(_END, t_now)
         return new_state, stats
 
+    step.stages = stages
     return step
+
+
+def stage_ms(stages: Optional[timer.StageRing]) -> Dict[str, List[Tuple[int, float]]]:
+    """Per-frame milliseconds of the step's stages from its stamp ring (one
+    copy to the host): ``track`` (start to after tracking: preprocess,
+    pyramids, ICP+RGB), ``render`` (the render branch less the fuse branch
+    inside it, frames that rendered), ``fuse`` (the fuse branch: window
+    fusion, placement and fill-in, frames that fused) and ``step`` (start
+    to end), each a list of (tick, ms) by tick."""
+    stamps = None if stages is None else stages.read()
+    if stamps is None:
+        return {"track": [], "render": [], "fuse": [], "step": []}
+    fuse = stages.intervals(_FUSE_START, _FUSE_END, stamps)
+    inner = dict(fuse)
+    return {
+        "track": stages.intervals(_START, _TRACKED, stamps),
+        "render": [(k, ms - inner.get(k, 0.0))
+                   for k, ms in stages.intervals(_RENDER_START, _RENDER_END, stamps)],
+        "fuse": fuse,
+        "step": stages.intervals(_START, _END, stamps),
+    }
 
 
 def make_graphed_step(
@@ -400,11 +444,15 @@ def make_graphed_step(
     graphed = graphs.GraphedFn(program, donate=[i for i in range(n) if i != tick])
 
     def step(state, rgb, depth_raw, in_pose, use_in_pose, weight_mult, cluster_id=0.0):
+        if graphed.graph is None:
+            # the stamp ring outside the graph's pool, before its capture
+            eager.stages.allocate(state.tick.device)
         stats = graphed(*(getattr(state, f) for f in STATE_FIELDS), rgb, depth_raw, in_pose,
                         use_in_pose, weight_mult, cluster_id)
         return SlamState(*graphed.inputs[:n]), stats
 
     step.graphed = graphed
+    step.stages = eager.stages
     return step
 
 

@@ -30,6 +30,12 @@ The per-frame path (`SparseTracker.track`) queues device work only and
 never reads the device; keyframe insertion and loop decisions happen in
 `flush()` every `flush_interval` frames, as a pipeline lagged by one
 interval, so each batched fetch reads values that have long executed.
+
+Its stages are `utils.timer` spans: `sparse.detect` and `sparse.match_pose`
+each frame; `sparse.flush` with one child per stage it runs
+(`sparse.keyframes`, `sparse.retrieve`, `sparse.verify`, `sparse.pgo`,
+`sparse.ba_fetch`, `sparse.ba_apply`); and each read of the device a
+`host.read` inside them.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch.nn.functional as F
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
 from densemonoslam_tpu_torch.parallel import ba
-from densemonoslam_tpu_torch.utils import se3
+from densemonoslam_tpu_torch.utils import se3, timer
 
 FAST_THRESHOLD = 20.0  # reference yaml iniThFAST
 FAST_THRESHOLD_MIN = 7.0  # reference yaml minThFAST (fallback)
@@ -382,7 +388,9 @@ def retrieve(
 def _fetch(*tensors: torch.Tensor) -> list:
     """Read several device tensors in ONE transfer: flattened to f32,
     concatenated, copied once, split back (as numpy, in their shapes)."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    with timer.span("host.read"):
+        flat = flat.cpu().numpy()
     out, o = [], 0
     for t in tensors:
         n = t.numel()
@@ -529,22 +537,25 @@ class SparseTracker:
         [4,4], tracked_ok bool).  Frame-to-frame motion-only GN (the
         constant-velocity front end); keyframes are inserted at the flush
         cadence."""
-        kp = self.detect(intensity, depth)
+        with timer.span("sparse.detect"):
+            kp = self.detect(intensity, depth)
         if self._prev is None:
             self._prev = (kp, self._pose)
             self._insert_keyframe(kp, self.pose, self.tick)
             self.tick += 1
             return self._pose, torch.ones((), dtype=torch.bool, device=self.device)
         prev_kp, prev_pose = self._prev
-        matches, _ = match(prev_kp, kp)
-        A, inl, err = motion_only_pose(
-            prev_kp, kp, matches, self.intr, torch.eye(4, dtype=torch.float32, device=self.device)
-        )
-        ok = (inl >= 15) & (err < 5.0)
-        pose_new = torch.where(ok, prev_pose @ A, self._pose)
+        with timer.span("sparse.match_pose"):
+            matches, _ = match(prev_kp, kp)
+            A, inl, err = motion_only_pose(
+                prev_kp, kp, matches, self.intr,
+                torch.eye(4, dtype=torch.float32, device=self.device),
+            )
+            ok = (inl >= 15) & (err < 5.0)
+            pose_new = torch.where(ok, prev_pose @ A, self._pose)
+            disp = torch.where(ok, torch.linalg.norm(A[:3, 3]), 0.0)
         self._pose = pose_new
         self._prev = (kp, pose_new)
-        disp = torch.where(ok, torch.linalg.norm(A[:3, 3]), 0.0)
         self._pending.append((kp, pose_new, ok, disp, self.tick, self._corr_cum.copy()))
         self.tick += 1
         if len(self._pending) >= self.flush_interval:
@@ -565,17 +576,19 @@ class SparseTracker:
 
         `drain=True` (explicit calls; `track()` passes False) processes
         everything synchronously: end-of-sequence semantics."""
-        batch, self._prev_pending = self._prev_pending, self._pending
-        self._pending = []
-        if drain:
-            batch = batch + self._prev_pending
-            self._prev_pending = []
-        self._advance_async()
-        if batch:
-            self._process_batch(batch)
-        if drain:
-            while self._async:
-                self._advance_async()
+        with timer.span("sparse.flush"):
+            batch, self._prev_pending = self._prev_pending, self._pending
+            self._pending = []
+            if drain:
+                batch = batch + self._prev_pending
+                self._prev_pending = []
+            self._advance_async()
+            if batch:
+                with timer.span("sparse.keyframes"):
+                    self._process_batch(batch)
+            if drain:
+                while self._async:
+                    self._advance_async()
 
     def _process_batch(self, batch) -> None:
         scal, poses = _fetch(  # ONE read for the whole interval, poses included
@@ -605,7 +618,8 @@ class SparseTracker:
         handlers schedule land in the NEXT advance)."""
         ops, self._async = self._async, []
         for kind, payload in ops:
-            getattr(self, "_adv_" + kind)(payload)
+            with timer.span("sparse." + kind):
+                getattr(self, "_adv_" + kind)(payload)
 
     # ----------------------------------------------------------- local BA
     def _schedule_local_ba(self) -> None:
@@ -727,7 +741,8 @@ class SparseTracker:
         and apply them: keyframes, the odometry edges between window
         members, and the live pose with the last keyframe's correction."""
         base, W, poses = p["base"], p["W"], p["poses_in"]
-        out = p["out"].cpu().numpy()
+        with timer.span("host.read"):
+            out = p["out"].cpu().numpy()
         self._ba_inflight = False
         if not np.all(np.isfinite(out)):
             return
@@ -819,7 +834,8 @@ class SparseTracker:
         self.loops_closed += 1
         self._edges.append((j, k, A, 3.0))
         if self.run_pgo:
-            self._optimise_graph(k=k, corrected=corrected, old_pose=pose_est, anchor_idx=j)
+            with timer.span("sparse.pgo"):
+                self._optimise_graph(k=k, corrected=corrected, old_pose=pose_est, anchor_idx=j)
 
     def _optimise_graph(
         self, k: int, corrected: np.ndarray, old_pose: np.ndarray, anchor_idx: int
@@ -870,7 +886,8 @@ class SparseTracker:
             out, _err = self._dist_pgo(poses_d, edges)
         else:
             out, _err = ba.optimise_pose_graph(poses_d, edges, cg_iters=128)
-        out = out.cpu().numpy()
+        with timer.span("host.read"):
+            out = out.cpu().numpy()
         # the per-keyframe corrections (from the ORIGINAL poses), so the
         # engine can rewrite its dense trajectory to the optimum
         self.pgo_event = (

@@ -19,7 +19,7 @@ the graph's; during the warm-up before a capture the body runs
 whatever `pred` holds, on that same stream (the false side does nothing),
 so everything it initialises is initialised before the capture; otherwise
 it is a Python `if`, whose read of `pred` is the one host read of an eager
-program.
+program (a `utils.timer` span `host.read`).
 
 Counters: `CAPTURES`, `REPLAYS`, `STATE_COPIES`, and `BRANCH_RUNS` (body
 runs per branch name).  A replay adds the kernel launches its capture
@@ -40,7 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from densemonoslam_tpu_torch.utils import launches
+from densemonoslam_tpu_torch.utils import launches, timer
 
 CAPTURES = 0
 REPLAYS = 0
@@ -161,7 +161,9 @@ def branch(pred: torch.Tensor, body: Callable[[], None], name: str) -> None:
     docstring).  `body` returns nothing: it writes into existing tensors."""
     rec = _ACTIVE
     if rec is None:
-        if bool(pred):
+        with timer.span("host.read"):
+            taken = bool(pred)
+        if taken:
             BRANCH_RUNS[name] += 1
             body()
         return

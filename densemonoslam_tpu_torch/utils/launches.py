@@ -1,8 +1,8 @@
 """Kernel launch counts: one `Counter` keyed ``(kernel, shape)``.
 
 Each hand-written kernel's wrapper adds one where it launches its kernel
-(`ops.gram` keys K1 by ``(P, C)``; `ops.deform` and `csrc/graph_if.cu`'s
-condition setter by ``None``), so that a run can show that its main path
+(`ops.gram` keys K1 by ``(P, C)``; `ops.deform`, `csrc/graph_if.cu`'s
+condition setter and `csrc/stamp.cu`'s stage stamp by ``None``), so that a run can show that its main path
 went through the kernels.  A CUDA graph's replays add the launches its
 capture recorded (`utils.graphs`), which only needs this module: the graph
 helper knows no kernel.

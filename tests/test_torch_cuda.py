@@ -715,3 +715,63 @@ def test_relocalisation_poll_waits_on_frame_t_minus_16(cuda, monkeypatch):
     for tick, evs in polls.items():
         assert len(evs) == 1 and evs[0] is made[max(tick - 1 - 16, 0)]
     assert fe.consecutive_bad == 0 and not fe.lost
+
+
+def test_graphed_step_stamps_its_stages(cuda):
+    """The stage stamps captured into the step's graph and its IF bodies:
+    per frame a start, a tracked and an end stamp, the render branch's two
+    where it rendered and the fuse branch's two where it fused (the stats
+    row's flag), each of them a replayed kernel launch; stage times that
+    add up within the step's."""
+    from densemonoslam_tpu_torch import step as tstep
+    from densemonoslam_tpu_torch.utils import graphs
+
+    seq, intr, cfg, frames = _graph_case(cuda)
+    eng = Engine(seq.camera, cfg, device=cuda)
+    fe = eng.frontend("cam0")
+    fe.pose = seq.gt_pose(0).astype(np.float32)
+    graphs.settle_counts()
+    before = klaunches.total("stamp")
+    for k, (rgb, depth) in enumerate(frames):
+        eng.process_frame("cam0", rgb, depth, float(k), sync=False)
+    torch.cuda.synchronize()
+    graphs.settle_counts()
+    st = eng.stage_ms("cam0")
+    n = len(frames)
+    fused = {k for k, row in enumerate(fe.stats_log) if float(row[tstep.STAT_FUSED]) > 0}
+    rendered = {k for k, _ in st["render"]}
+    assert [k for k, _ in st["track"]] == [k for k, _ in st["step"]] == list(range(n))
+    assert {k for k, _ in st["fuse"]} == fused and fused <= rendered and 0 < len(fused) < n
+    # the warm-up runs every body once, then each replay its own stamps
+    assert klaunches.total("stamp") - before == 7 + 3 * n + 2 * (len(rendered) + len(fused))
+    step = dict(st["step"])
+    for stage in ("track", "render", "fuse"):
+        for k, ms in st[stage]:
+            assert 0.0 <= ms <= step[k]
+
+
+def test_device_spans_time_the_card_and_refuse_a_capture(cuda):
+    """A recorded device span's events time the work queued inside it; one
+    opened while a graph captures raises."""
+    from densemonoslam_tpu_torch.utils import timer
+
+    a = torch.randn(2048, 2048, device=cuda)
+    timer.reset()
+    timer.enable()
+    try:
+        with timer.span("work", device=True):
+            for _ in range(10):
+                a = a @ a.T / 2048.0
+        rec = timer.spans()[0]
+        assert rec.events is not None and timer.device_ms(rec) > 0.0
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(s):
+            with pytest.raises(RuntimeError, match="capture"):
+                with torch.cuda.graph(g, stream=s):
+                    with timer.span("captured", device=True):
+                        a.add_(1.0)
+    finally:
+        timer.enable(False)
+        timer.reset()
