@@ -14,6 +14,17 @@ Phases (any failure raises, so the exit code is not 0):
    reruns, one device kernel per call, and per shape the device times of
    the kernel, its previous design (`csrc/prev/gram.cu`), the plain version
    and cuBLAS beside the bound, and host call times;
+1b. K1's fused form, the whole tracking iteration (`csrc/track_iter.cu`),
+   at the main paths' shapes (revisit 76800, 19200 and 4800 rows, mono
+   81920; SO3 4800 x 8): an exact and a frozen iteration each against the
+   former chain (the same iteration op by op on the card, K1 inside) from
+   the same carry and sample (pose, stats and `done`), device times of the
+   same two iterations fused and of the chain captured as a CUDA graph,
+   beside K1's bound for the rows and the fused kernel's own; then a whole
+   track at the cells' settings against the plain track on the CPU: its
+   pose (1e-4 m / 1e-4 rad), its fused launches by mode (39) and its device
+   operations (at most 60) against the plain composition's.  Every leg
+   after it checks that each of its K1 launches was a fused iteration;
 2. the open-loop path: `Engine()` on the 640x480 synthetic orbit at the
    headline configuration (1<<20-surfel map, 4 pyramid levels, row stride 2,
    NID keyframing, open loop): 4 warm-up + 30 timed frames, with tracking,
@@ -116,8 +127,8 @@ Phases (any failure raises, so the exit code is not 0):
    stage), then K2 against its plain version on
    `examples/torch_profile_closure.py`'s map (1<<22 rows, 2,097,152 live)
    with the graph its closure applies;
-16. K1 at the other shapes the legs launched it at, and per shape its
-   launches over the legs times (device time - bound).
+16. the legs' fused launches per K1 shape and in all, and gram(M)'s own
+   launches (its checks above; none on the main paths).
 
 Each leg sets every launch count to 0 just before it and reads the counts
 just after; K1's counts are also kept per (P, C).  The IF-node condition
@@ -361,7 +372,8 @@ def phase_device() -> str:
     log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libs = cuda_build.build("gram", "deform", "graph_if", "stamp", "prev/gram", "prev/deform")
+    libs = cuda_build.build("gram", "track_iter", "deform", "graph_if", "stamp", "prev/gram",
+                            "prev/deform")
     log(f"[phase 0] built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -420,6 +432,233 @@ def phase_gram(shapes=GRAM_SHAPES) -> dict:
     return dict(max_abs_err=worst, times=times)
 
 
+# the fused tracking iteration (`csrc/track_iter.cu`) at the main paths'
+# shapes: (cell, W, H, level, bilinear); revisit's 4800 rows are its level 2
+# at row stride 2 and its level 3 (also the SO3 level, 4800 x 8)
+TRACK_SHAPES = [("revisit", 640, 480, 0, False), ("revisit", 640, 480, 1, False),
+                ("revisit", 640, 480, 2, True), ("revisit", 640, 480, 3, True),
+                ("mono", 1024, 320, 0, False)]
+# both cells' step (`benchmark/configs/*.json`): 4 levels, row stride 2
+TRACK_SETTINGS = dict(iterations=(4, 5, 10, 10), icp_weight=10.0, row_stride=2)
+
+
+def _track_inputs(W: int, H: int, levels: int = 4):
+    """Frame 6 against frame 5's pyramid on the revisit orbit with a W x H
+    camera (fx = 528 W / 640), warm start ~1 cm / ~0.6 deg off the true
+    motion: (model, frame, intrinsics, A0) on the CPU."""
+    from densemonoslam_tpu_torch.utils import se3
+
+    intr = CameraIntrinsics(528.0 * W / 640, 528.0 * W / 640, W / 2 - 0.5, H / 2 - 0.5)
+    seq = SyntheticSequence(camera=CameraConfig(FrameResolution(W, H), intr, "track"),
+                            num_frames=40, radius=0.35, max_angle=0.3)
+    (rgb_m, d_m), (rgb_c, d_c) = seq.frame(5), seq.frame(6)
+    rel = np.linalg.inv(seq.gt_pose(5)) @ seq.gt_pose(6)
+    off = se3.se3_exp(torch.tensor([0.01, 0.0, -0.005, 0.01, -0.005, 0.0])).numpy()
+    model = odometry.model_pyramid_from_frame(odometry.build_frame_pyramid(
+        torch.from_numpy(rgb_m), torch.from_numpy(d_m), intr, levels))
+    frame = odometry.build_frame_pyramid(torch.from_numpy(rgb_c), torch.from_numpy(d_c), intr,
+                                         levels)
+    return model, frame, intr, torch.from_numpy((off @ rel).astype(np.float32))
+
+
+def _on(tree, dev):
+    return type(tree)(*(tuple(x.to(dev) for x in field) for field in tree))
+
+
+def _graph_replay(fn):
+    """`fn` captured as a CUDA graph (run once on the capture stream first,
+    so that K1's scratch for it exists); returns the graph's replay."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return graph.replay
+
+
+def _count_ops(fn) -> tuple:
+    """Device operations `fn` dispatches through PyTorch (views, allocations,
+    host reads and profiler ranges left out), and what `fn` returned."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            skip = (func.is_view or func.namespace == "profiler"
+                    or func in (torch.ops.aten.empty.memory_format,
+                                torch.ops.aten._local_scalar_dense.default))
+            Ops.n += 0 if skip else 1
+            return func(*args, **(kwargs or {}))
+
+    with Ops():
+        out = fn()
+    return Ops.n, out
+
+
+def _plain_carry(c: torch.Tensor) -> tuple:
+    """A fused GN carry as the plain composition's (A, stats, done)."""
+    return (c[:16].view(4, 4), (c[16], c[17], c[18], c[19], c[20:56].view(6, 6)), c[56] != 0)
+
+
+def _carry_check(what: str, fused: torch.Tensor, plain: tuple, P: int) -> float:
+    """A fused iteration's carry against the plain composition's from the
+    same carry, at the card test's tolerances (`tests/test_torch_cuda.py`,
+    `_assert_carry_close`): the pose within 1e-5, the errors within 1e-4
+    relative, the inlier counts within 2 + 5e-4 P rows (a gate value within
+    an ulp of its threshold), JtJ within 5e-4 of its largest entry, `done`
+    exactly.  Returns the pose's largest gap."""
+    fused = fused.cpu()
+    A, (e_i, n_i, e_r, n_r, JtJ), done = (x.cpu() if torch.is_tensor(x) else
+                                          tuple(y.cpu() for y in x) for x in plain)
+    err = float((fused[:16] - A.reshape(16)).abs().max())
+    if not err < 1e-5:
+        raise AssertionError(f"{what}: pose {err:.3e} from the plain chain's")
+    for k, e in ((16, e_i), (18, e_r)):
+        np.testing.assert_allclose(float(fused[k]), float(e), rtol=1e-4, err_msg=what)
+    for k, n in ((17, n_i), (19, n_r)):
+        if abs(float(fused[k]) - float(n)) > 2 + 5e-4 * P:
+            raise AssertionError(f"{what}: inliers {float(fused[k]):.0f}, plain {float(n):.0f}")
+    if float((fused[20:56] - JtJ.reshape(36)).abs().max()) > 5e-4 * float(JtJ.abs().max()):
+        raise AssertionError(f"{what}: JtJ apart from the plain chain's")
+    if bool(fused[56] != 0) != bool(done):
+        raise AssertionError(f"{what}: done {bool(fused[56] != 0)}, plain {bool(done)}")
+    return err
+
+
+def phase_track_iter() -> dict:
+    """The fused tracking iteration at each main-path shape: an exact and a
+    frozen iteration each against the former chain (the same iteration op
+    by op, K1 inside, on the card) from the same carry and sample; device
+    times of the same two iterations, fused and the chain captured as a
+    CUDA graph, beside K1's bound for the rows and the fused kernel's own;
+    the SO3 pre-align likewise; then a whole track at the cells' settings
+    against the plain track on the CPU: its pose, fused launches by mode
+    and device operations, against the plain composition's operations."""
+    from densemonoslam_tpu_torch.ops import track_iter
+
+    times = {}
+    inf, zero = torch.full((), float("inf"), device="cuda"), torch.zeros((), device="cuda")
+    reset_counts()
+    for cell, W, H, lv, bilinear in TRACK_SHAPES:
+        model, frame, intr, A0 = _track_inputs(W, H)
+        v, n, i = frame.vmap[lv], frame.nmap[lv], frame.intensity[lv]
+        stride = 2 if i.numel() // 4 >= 4096 else 1
+        lvl = odometry._Level(
+            v_c=v.cuda()[::stride, ::stride], n_c=n.cuda()[::stride, ::stride],
+            i_c=i.cuda()[::stride, ::stride], pack_m=model.pack[lv].cuda(), intr=intr.scaled(lv),
+            bilinear=bilinear, icp_weight=10.0)
+        P = lvl.i_c.numel()
+        A0c = A0.cuda()
+        start = (A0c, (inf, zero, inf, zero, torch.eye(6, device="cuda")),
+                 torch.zeros((), dtype=torch.bool, device="cuda"))
+        carry = torch.empty(track_iter.GN_CARRY, device="cuda")
+        sample = torch.empty(P * track_iter.GN_SAMPLE, device="cuda")
+        kw = dict(bilinear=bilinear, icp_weight=10.0, rgb_scale=odometry.RGB_UNIT_SCALE)
+        args = (lvl.v_c, lvl.n_c, lvl.i_c, lvl.pack_m, lvl.intr)
+        track_iter.gn_iteration(*args, A0c, carry, fresh=True, sample=sample, write_sample=True,
+                                **kw)
+        err = _carry_check(f"track_iter {cell} {P}x16 exact", carry,
+                           odometry._exact_iters(lvl, start, 1), P)
+        # a frozen iteration from the exact one's carry against the sample
+        # kept at A0, fused and op by op
+        fixed = carry.clone()
+        fixed_plain = _plain_carry(fixed)
+        u0, v0, _ = odometry.geometry.project(
+            odometry.se3.transform_points(A0c, lvl.v_c.reshape(P, 3)), lvl.intr)
+        smp = reductions.sample_model(lvl.pack_m, u0, v0, bilinear=bilinear)
+        uv0 = torch.stack([u0, v0], -1)
+
+        def chain_frozen():
+            rows = reductions.joint_rows_frozen(lvl.v_c.reshape(P, 3), lvl.n_c.reshape(P, 3),
+                                                lvl.i_c.reshape(P), smp, uv0, fixed_plain[0],
+                                                lvl.intr)
+            return odometry._advance(fixed_plain, *odometry._solve_iter(lvl, *rows))
+
+        track_iter.gn_iteration(*args, fixed, carry, fresh=False, sample=sample, **kw)
+        frozen_err = _carry_check(f"track_iter {cell} {P}x16 frozen", carry, chain_frozen(), P)
+
+        fused = dict(
+            exact=device_ms(lambda: track_iter.gn_iteration(*args, A0c, carry, fresh=True, **kw)),
+            frozen=device_ms(lambda: track_iter.gn_iteration(*args, fixed, carry, fresh=False,
+                                                             sample=sample, **kw)),
+        )
+        chain = dict(exact=device_ms(_graph_replay(lambda: odometry._exact_iters(lvl, start, 1))),
+                     frozen=device_ms(_graph_replay(chain_frozen)))
+        k1_ms, _ = bound_ms(4.0 * (P * 16 + 256), 2.0 * P * 256)
+        Hm, Wm = lvl.pack_m.shape[:2]
+        own = dict(exact=bound_ms(28.0 * P + 48.0 * Hm * Wm, 0)[0],
+                   frozen=bound_ms(76.0 * P, 0)[0])
+        times[(cell, P, 16)] = dict(fused_ms=fused, chain_ms=chain, k1_bound_ms=k1_ms,
+                                    bound_ms=own, pose_err=max(err, frozen_err))
+        log(f"[track_iter] {cell} {P:6d}x16 ({'bilinear' if bilinear else 'nearest'}): pose "
+            f"{err:.2e} exact, {frozen_err:.2e} frozen from the chain's (stats and done "
+            f"within the card test's tolerances); device a GN iteration: fused exact "
+            f"{fused['exact'] * 1e3:7.2f} us, frozen {fused['frozen'] * 1e3:7.2f} us; the chain "
+            f"in a graph: exact {chain['exact'] * 1e3:8.2f} us, frozen "
+            f"{chain['frozen'] * 1e3:8.2f} us; bound: K1's rows {k1_ms * 1e3:5.2f} us, the fused "
+            f"kernel's bytes exact {own['exact'] * 1e3:5.2f} / frozen {own['frozen'] * 1e3:5.2f} us")
+
+    # the SO3 pre-align at revisit's coarsest level, ten iterations each way
+    model, frame, intr, A0 = _track_inputs(640, 480)
+    mc, fc, A0c = _on(model, "cuda"), _on(frame, "cuda"), A0.cuda()
+    top = intr.scaled(3)
+    fused_R = odometry._so3_prealign_fused(mc, fc, top, A0c)[:3, :3]
+    plain_R = odometry._so3_prealign(mc, fc, top, A0c[:3, :3])
+    torch.cuda.synchronize()
+    so3_err = float((fused_R - plain_R).abs().max())
+    if not so3_err < 1e-5:
+        raise AssertionError(f"track_iter SO3: rotation {so3_err:.3e} from the plain chain's")
+    so3 = dict(
+        fused=device_ms(lambda: odometry._so3_prealign_fused(mc, fc, top, A0c)) / 10,
+        chain=device_ms(_graph_replay(lambda: odometry._so3_prealign(mc, fc, top, A0c[:3, :3])))
+        / 10,
+        k1_bound=bound_ms(4.0 * (4800 * 8 + 64), 2.0 * 4800 * 64)[0],
+    )
+    times[("revisit", 4800, 8)] = so3
+    log(f"[track_iter] revisit SO3 4800x8: rotation {so3_err:.2e} from the chain's; device an "
+        f"iteration (mean of 10): fused {so3['fused'] * 1e3:7.2f} us, the chain in a graph "
+        f"{so3['chain'] * 1e3:8.2f} us; K1's bound {so3['k1_bound'] * 1e3:5.2f} us")
+
+    # gram(M)'s launches inside the chains above
+    chain_k1 = counts()["gram"] - counts()["track_iter"]
+    # a whole track at the cells' settings: launches and device operations
+    tracks = {}
+    for cell, W, H in (("revisit", 640, 480), ("mono", 1024, 320)):
+        model, frame, intr, A0 = _track_inputs(W, H)
+        mc, fc, A0c = _on(model, "cuda"), _on(frame, "cuda"), A0.cuda()
+        odometry.track(mc, fc, A0c, intr, **TRACK_SETTINGS)
+        reset_counts()
+        ops, res = _count_ops(lambda: odometry.track(mc, fc, A0c, intr, **TRACK_SETTINGS))
+        modes, fused_n, k1_n = by_mode(), klaunches.total("track_iter"), klaunches.total("gram")
+        plain_ops, ref = _count_ops(lambda: odometry.track(model, frame, A0, intr,
+                                                           **TRACK_SETTINGS))
+        # the card test's tolerance: two f32 runs of 39 iterations
+        dT = np.linalg.inv(ref.A.numpy()) @ res.A.cpu().numpy()
+        dt_m = float(np.linalg.norm(dT[:3, 3]))
+        dr_rad = float(np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1)))
+        if not (dt_m < 1e-4 and dr_rad < 1e-4) or bool(res.failed) or bool(ref.failed):
+            raise AssertionError(f"track_iter {cell} track: {dt_m:.3e} m, {dr_rad:.3e} rad from "
+                                 f"the plain track on the CPU (failed {bool(res.failed)}, plain "
+                                 f"{bool(ref.failed)})")
+        tracked = graphs.GraphedFn(lambda A: odometry.track(mc, fc, A, intr, **TRACK_SETTINGS).A)
+        track_ms = device_ms(lambda: tracked(A0c), n=20)
+        tracks[cell] = dict(ops=ops, fused=fused_n, plain_ops=plain_ops, modes=modes,
+                            track_ms=track_ms, pose_gap=(dt_m, dr_rad))
+        log(f"[track_iter] {cell} track ({W}x{H}, {TRACK_SETTINGS}): pose {dt_m:.2e} m, "
+            f"{dr_rad:.2e} rad from the plain track on the CPU; {fused_n} fused launches "
+            f"{modes}, K1 launches {k1_n}, {ops} other device operations: {ops + fused_n} in all "
+            f"against {plain_ops} for the plain composition (counted on the CPU); the track as "
+            f"a graph {track_ms:.3f} ms of device time")
+        if fused_n != k1_n or fused_n != 39 or ops + fused_n > 60:
+            raise AssertionError(f"track_iter {cell}: {fused_n} fused launches, {k1_n} K1, "
+                                 f"{ops} other operations")
+    return dict(times=times, tracks=tracks, chain_k1=chain_k1)
+
+
 def settle() -> None:
     """Wait for the device, then add the launches of the graphs' branch
     bodies that ran since the last settle (`graphs.settle_counts`)."""
@@ -436,11 +675,30 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """K1's, K2's and the stage stamp's launches since the last
-    `reset_counts`, settled."""
+    """K1's, K2's, the stage stamp's and the fused tracking iteration's
+    launches since the last `reset_counts`, settled."""
     settle()
     return dict(gram=klaunches.total("gram"), deform=klaunches.total("deform"),
-                stamp=klaunches.total("stamp"))
+                stamp=klaunches.total("stamp"), track_iter=klaunches.total("track_iter"))
+
+
+def by_mode() -> dict:
+    """Fused tracking iterations per mode since the last `reset_counts`."""
+    settle()
+    return dict(sorted(klaunches.by_shape("track_iter").items()))
+
+
+def fused_check(label: str, launches: dict, modes: bool = True) -> None:
+    """Every K1 launch of a leg was a fused tracking iteration: on the card
+    `odometry.track` runs each iteration as one, and the plain `gram(M)`
+    runs only in the kernel checks, after a leg's counts are read.  Logs
+    the leg's fused launches by mode where this process counted them since
+    the leg's reset (`modes`)."""
+    log(f"[{label}] fused tracking iterations {launches['track_iter']} of {launches['gram']} "
+        f"K1 launches" + (f", by mode {by_mode()}" if modes else ""))
+    if launches["track_iter"] != launches["gram"]:
+        raise AssertionError(f"{label}: {launches['gram']} K1 launches, "
+                             f"{launches['track_iter']} of them fused iterations")
 
 
 def by_shape() -> dict:
@@ -498,6 +756,8 @@ def phase_slam() -> dict:
 
     dt, syncs = _count_syncs(timed)
     launches, shapes, stamps = counts()["gram"], by_shape(), counts()["stamp"]
+    fused_iters = counts()["track_iter"]
+    fused_check("phase 2", counts())
     peak = torch.cuda.max_memory_allocated()
 
     stats = torch.stack(fe.stats_log).cpu().numpy()
@@ -541,7 +801,8 @@ def phase_slam() -> dict:
     log(f"[phase 2] compact of the {cfg.max_surfels}-row map: first call "
         f"{samples[0]:.2f} ms, then median {statistics.median(samples[1:]):.2f} ms "
         f"(min {min(samples[1:]):.2f}, max {max(samples[1:]):.2f}) over 5")
-    return dict(launches=launches, shapes=shapes, stamps=stamps, engine=eng, frames=frames)
+    return dict(launches=launches, fused=fused_iters, shapes=shapes, stamps=stamps, engine=eng,
+                frames=frames)
 
 
 def phase_profile(eng, frames) -> None:
@@ -1000,6 +1261,7 @@ def phase_odometry() -> dict:
                 for tag, flush in (("batched", False), ("each", True), ("batched_again", False))]
     launches = counts()
     shapes = by_shape()
+    fused_check("odometry", launches)
     batched, each, _ = runs
     same = dict(
         trajectory=all(np.array_equal(r["traj"], batched["traj"]) for r in runs),
@@ -1029,7 +1291,7 @@ def phase_odometry() -> dict:
     # which is exact in f32 and leaves the kernel's rounding as it is; the
     # RGB block's entries reach 1e12 unscaled, where f32's cancellation
     # alone is 2e-5 of an off-diagonal entry
-    block_err = 0.0
+    block_err, n0 = 0.0, klaunches.total("gram")
     for name, M in zip(("icp_rows", "rgb_rows"), _rows_block(seq)):
         col = M.abs().amax(dim=0).clamp(min=1e-30)
         M = M * torch.exp2(-torch.round(torch.log2(col)))
@@ -1043,7 +1305,7 @@ def phase_odometry() -> dict:
             f"rows kept, columns scaled to unit size): max|err| {err:.3e} against "
             f"gram_reference in f64, within rtol {GRAM_TOL['rtol']} / atol {GRAM_TOL['atol']}")
     return dict(launches=launches, shapes=shapes, fps=odo["fps"], ate_mm=1e3 * odo["ate"],
-                block_err=block_err)
+                block_err=block_err, block_launches=klaunches.total("gram") - n0)
 
 
 def phase_deform_synthetic() -> dict:
@@ -1188,6 +1450,7 @@ def _closed_loop_leg(camera, seq, frames, cfg, eng, fe) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     launches = counts()
     shapes = by_shape()
+    fused_check("closed loop", launches)
     walls, syncs = 1e3 * np.array(walls), np.array(syncs, float)
     closed_all = np.array(closed)
     checks, closed = np.array(checks), closed_all[CL_WARMUP:]
@@ -1288,6 +1551,8 @@ def phase_relocalisation() -> dict:
         eng.process_frame("cam0", *seq.frame(i % 16), float(100 + i))
         per_frame.append((counts()["gram"] - n0, sum(in_reloc) - r0, starved() - s0))
     launches, shapes, stamps = counts()["gram"], by_shape(), counts()["stamp"]
+    fused = counts()["track_iter"]
+    fused_check("reloc", counts())
     err = float(np.linalg.norm(fe.pose[:3, 3] - seq.gt_pose(15)[:3, 3]))
     log(f"[reloc] {ferns} fern keyframes; {len(calls)} relocalisation attempts, "
         f"{sum(calls)} accepted; final pose {err:.3f} m from the map's last ground-truth pose")
@@ -1304,7 +1569,7 @@ def phase_relocalisation() -> dict:
         raise AssertionError("an accepted relocalisation launched no gram kernel")
     if not err < 1.0:
         raise AssertionError(f"pose still {err:.2f} m from the map")
-    return dict(launches=launches, shapes=shapes, stamps=stamps)
+    return dict(launches=launches, fused=fused, shapes=shapes, stamps=stamps)
 
 
 def _street_sequence() -> StreetSequence:
@@ -1520,6 +1785,7 @@ def phase_mono_street(seq: StreetSequence, frames: list) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     launches = counts()
     shapes = by_shape()
+    fused_check("mono", launches)
     peak = torch.cuda.max_memory_allocated()
     n_timed = MONO_FRAMES - STREET_WARMUP
     stats = torch.stack(fe.stats_log).cpu().numpy()
@@ -1863,6 +2129,7 @@ def phase_two_cameras() -> dict:
     if not (inl >= 30 and rms < 0.25 and bterr < 0.2 and len(eng2.maps) == 1):
         raise AssertionError(f"batch align: inliers {inl}, rms {rms}, error {bterr}")
     launches, shapes = counts(), by_shape()
+    fused_check("two cameras", launches)
     log(f"[two cameras] launches with the batch align: gram {launches['gram']}, deform "
         f"{launches['deform']}; gram by (P, C): {shapes}")
     return dict(launches=launches, shapes=shapes)
@@ -2250,7 +2517,8 @@ def check_collab(solo: dict, ranks: list) -> dict:
         if not ok:
             raise AssertionError(f"collab: {what}")
     launches = {k: solo["launches"][k] + sum(r["launches"][k] for r in ranks)
-                for k in ("gram", "deform", "stamp")}
+                for k in ("gram", "deform", "stamp", "track_iter")}
+    fused_check("collab", launches, modes=False)
     shapes: dict = {}
     for r in [solo, *ranks]:
         for key, n in r["shapes"].items():
@@ -2550,7 +2818,7 @@ def phase_app() -> dict:
     # one 640x480 frame takes the host ~0.4 s to render: a spawned pool
     with multiprocessing.get_context("spawn").Pool(min(6, os.cpu_count() or 1)) as pool:
         frames = pool.map(seq.frame, range(MULTI_OFFSET + n))
-    launches, shapes, fps = dict(gram=0, deform=0, stamp=0), {}, {}
+    launches, shapes, fps = dict(gram=0, deform=0, stamp=0, track_iter=0), {}, {}
 
     def count(label):
         settle()
@@ -2558,6 +2826,7 @@ def phase_app() -> dict:
         launches["gram"] += k1
         launches["deform"] += k2
         launches["stamp"] += klaunches.total("stamp")
+        launches["track_iter"] += klaunches.total("track_iter")
         for shape, k in klaunches.by_shape("gram").items():
             shapes[shape] = shapes.get(shape, 0) + k
         log(f"[app] {label}: K1 {k1} launches, K2 {k2}")
@@ -2645,6 +2914,7 @@ def phase_app() -> dict:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[app] K1 {launches['gram']} launches, K2 {launches['deform']} over the leg; K1 by "
         f"(P, C): {dict(sorted(shapes.items(), reverse=True))}")
+    fused_check("app", launches, modes=False)
     return dict(launches=launches, shapes=dict(sorted(shapes.items(), reverse=True)), fps=fps,
                 ckpt=ckpt, live=live, viewer=viewer)
 
@@ -2726,6 +2996,7 @@ def _train_mono(mod, path: str) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     shapes = by_shape()
+    fused_check("train", launches)
     est = [p for _, p in eng.frontends["cam0"].trajectory]
     ate = float(ate_rmse(est, [seq.gt_pose(i) for i in range(TRAIN_MONO_FRAMES)]))
     log(f"[train] the card-trained net in the monocular engine: frame 0 relative depth error "
@@ -2883,6 +3154,7 @@ def phase_bench() -> dict:
         raise AssertionError(f"torch_profile_stages: a stage without time: {stages}")
     launches = counts()  # before K2's checks
     shapes = by_shape()
+    fused_check("bench", launches)
     log(f"[bench] launches: gram {launches['gram']}, deform {launches['deform']}; "
         f"gram by (P, C): {shapes}")
     if launches["gram"] == 0:
@@ -2925,8 +3197,13 @@ def run(street: HostRender) -> int:
         log(f"[time] {name}: {now - clock:.1f} s")
         clock = now
 
+    reset_counts()
     k1 = phase_gram()
+    k1_launches = counts()["gram"]
     lap("K1")
+    fused = phase_track_iter()
+    torch.cuda.empty_cache()
+    lap("fused tracking iteration")
     slam = phase_slam()
     phase_profile(slam["engine"], slam["frames"])
     del slam["engine"], slam["frames"]
@@ -2974,25 +3251,36 @@ def run(street: HostRender) -> int:
     bench = phase_bench()
     torch.cuda.empty_cache()
     lap("bench")
-    # K1 at the shapes the legs launched it at that phase 1 did not cover,
-    # then launches x (time - bound) per shape over the legs
+    # the legs' K1 launches per (P, C), every one a fused tracking iteration
+    # (`fused_check`); `gram(M)` (csrc/gram.cu) runs only in its own checks
     legs = {"open": slam["shapes"], "odometry": odo["shapes"], "closed": closed["shapes"],
             "reloc": reloc["shapes"],
             "mono": mono["shapes"], "two cameras": two["shapes"], "collab": collab["shapes"],
             "app": app["shapes"], "train": train["shapes"], "bench": bench["shapes"]}
-    seen = sorted({shape for leg in legs.values() for shape in leg}, reverse=True)
-    more = phase_gram([shape for shape in seen if shape not in k1["times"]])
-    k1["times"].update(more["times"])
-    k1["max_abs_err"] = max(k1["max_abs_err"], more["max_abs_err"], odo["block_err"])
-    for shape in seen:
+    for shape in sorted({shape for leg in legs.values() for shape in leg}, reverse=True):
         n = sum(leg.get(shape, 0) for leg in legs.values())
-        t = k1["times"][shape]
         split = ", ".join(f"{k} {leg.get(shape, 0)}" for k, leg in legs.items())
-        log(f"[gram] {shape[0]}x{shape[1]}: {n} launches ({split}), "
-            f"launches x (time - bound) {n * (t['ms'] - t['bound_ms']):.3f} ms, "
-            f"previous design {n * (t['prev_ms'] - t['bound_ms']):.3f} ms")
+        log(f"[track_iter] {shape[0]}x{shape[1]} in K1's terms: {n} fused launches ({split})")
+    k1["max_abs_err"] = max(k1["max_abs_err"], odo["block_err"])
+    # each leg's K1 launches and, of them, fused iterations (equal in every
+    # leg, `fused_check`): what is left are gram(M)'s own on the main paths
+    counted = {"open": (slam["launches"], slam["fused"]),
+               "reloc": (reloc["launches"], reloc["fused"]),
+               **{k: (leg["launches"]["gram"], leg["launches"]["track_iter"]) for k, leg in
+                  (("odometry", odo), ("closed", closed), ("mono", mono), ("two cameras", two),
+                   ("collab", collab), ("app", app), ("train", train), ("bench", bench))}}
+    fused_n = sum(f for _, f in counted.values())
+    gram_main = sum(g - f for g, f in counted.values())
+    gram_n = k1_launches + fused["chain_k1"] + odo["block_launches"] + gram_main
+    log(f"[track_iter] fused launches over every leg: {fused_n} "
+        f"({', '.join(f'{k} {f}' for k, (_, f) in counted.items())}); per track: "
+        f"{fused['tracks']}")
+    log(f"[gram] gram(M) launches: {gram_n} (its phase-1 checks {k1_launches}, phase 1b's "
+        f"op-by-op chains {fused['chain_k1']}, the odometry leg's row blocks "
+        f"{odo['block_launches']}, the legs' main paths {gram_main})")
     lap("K1 per shape")
     g = k1["times"][GRAM_SHAPES[0]]
+    head = fused["times"][("revisit", 76800, 16)]
     # every map K2 was held against its plain version on; the entry's
     # times are those of the closed-loop map, where most of its launches are
     k2_checks = [k2_synth, k2_real, mono["k2"], hybrid["k2"], *bench["k2"]]
@@ -3003,10 +3291,7 @@ def run(street: HostRender) -> int:
             "route": "cuda",
             "source": "densemonoslam_tpu_torch/csrc/gram.cu",
             "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66",
-            "launches": slam["launches"] + odo["launches"]["gram"] + closed["launches"]["gram"]
-            + reloc["launches"]
-            + mono["launches"]["gram"] + two["launches"]["gram"] + collab["launches"]["gram"]
-            + app["launches"]["gram"] + train["launches"]["gram"] + bench["launches"]["gram"],
+            "launches": gram_n,
             "launches_per_call": g["launches_per_call"],
             "max_abs_err": k1["max_abs_err"],
             "ms": g["ms"],
@@ -3015,6 +3300,22 @@ def run(street: HostRender) -> int:
             "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"],
             "library_ms": g["library_ms"],
+        },
+        {
+            "name": "track_iter",
+            "route": "cuda",
+            "source": "densemonoslam_tpu_torch/csrc/track_iter.cu",
+            "replaces": "densemonoslam_tpu/ops/pallas/gram.py:66 with the row build, solve and "
+                        "update around it (densemonoslam_tpu/tracking/odometry.py)",
+            "launches": fused_n,
+            "launches_per_call": 1,
+            "max_abs_err": head["pose_err"],
+            "ms": head["fused_ms"]["frozen"],
+            "prev_ms": head["chain_ms"]["frozen"],
+            "plain_ms": head["chain_ms"]["frozen"],
+            "bound_ms": head["bound_ms"]["frozen"],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
         {
             "name": "deform",

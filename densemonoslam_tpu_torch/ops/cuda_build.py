@@ -28,6 +28,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+# flags one source adds to NVCC_FLAGS: the fused tracking iteration builds
+# its rows without FMA contraction, so they round as the op-by-op
+# composition's elementwise operations do
+SOURCE_FLAGS = {"track_iter": ["--fmad=false"]}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # nvcc processes started: a run reads it to show that no kernel was built
 # inside its timed frames
@@ -46,10 +50,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` at its current source lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name.replace('/', '-')}_{key}.so"
 
 
@@ -70,7 +78,7 @@ def build(*names: str) -> Dict[str, Path]:
         for name in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))

@@ -1,10 +1,12 @@
 """Gram reduction ``G = M^T M`` (kernel K1): the normal-equation core of every
 SO3 and Gauss-Newton iteration.
 
-`gram(M)` is the one entry point the port uses.  A tensor on the CPU goes to
+`gram(M)` is the entry point for a row matrix.  A tensor on the CPU goes to
 `gram_reference`, the plain PyTorch version; a CUDA tensor goes to the
 hand-written Hopper kernel in `csrc/gram.cu` (replacing the TPU kernel
-`densemonoslam_tpu.ops.pallas.gram.gram_pallas`), or the call raises.
+`densemonoslam_tpu.ops.pallas.gram.gram_pallas`), or the call raises.  On
+the card `odometry.track` does not build M: it runs K1 fused into the whole
+tracking iteration (`ops.track_iter`).
 
 The kernel is compiled with `nvcc` for `sm_90a` into `build/kernels/` at
 first use, keyed by a hash of its source, and loaded through a plain C entry

@@ -29,6 +29,17 @@ from densemonoslam_tpu_torch.utils import se3
 ICP_DIST_THRESH = 0.10
 ICP_ANGLE_SIN_THRESH = 0.34202
 RGB_MIN_GRAD = 1.0  # intensity gradient magnitude gate, [0,255] units
+RGB_MAX_RESIDUAL = 255.0  # photometric residual gate, [0,255] units
+OCCLUSION_THRESH = 0.15  # metres between the warped and the model depth
+# How far (pixels) a row may drift from a frozen sample's position before
+# it is gated out: the GN levels' and the SO3 pre-align's.
+GN_DRIFT_PX = 2.0
+SO3_DRIFT_PX = 3.0
+# Tracking's solver settings (`tracking.odometry`, and `ops.track_iter` on
+# the card): damping, the inliers an update needs, and the squared step
+# below which iterating stops; for the GN levels and the SO3 pre-align.
+GN_DAMPING, GN_MIN_INLIERS, GN_STEP_TOL = 1e-8, 10.0, 1e-9
+SO3_DAMPING, SO3_MIN_INLIERS, SO3_STEP_TOL = 1e-4, 50.0, 1e-10
 
 class GramStats(NamedTuple):
     """Unpacked Gram-matrix results for one GN step."""
@@ -212,8 +223,8 @@ def joint_rows_packed(
     dist_thresh: float = ICP_DIST_THRESH,
     angle_thresh: float = ICP_ANGLE_SIN_THRESH,
     min_grad: float = RGB_MIN_GRAD,
-    max_residual: float = 255.0,
-    occlusion_thresh: float = 0.15,
+    max_residual: float = RGB_MAX_RESIDUAL,
+    occlusion_thresh: float = OCCLUSION_THRESH,
     bilinear: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ICP and RGB row matrices (M_icp [P,8], M_rgb [P,8]) from one packed
@@ -254,9 +265,9 @@ def joint_rows_frozen(
     dist_thresh: float = ICP_DIST_THRESH,
     angle_thresh: float = ICP_ANGLE_SIN_THRESH,
     min_grad: float = RGB_MIN_GRAD,
-    max_residual: float = 255.0,
-    occlusion_thresh: float = 0.15,
-    drift_px: float = 2.0,
+    max_residual: float = RGB_MAX_RESIDUAL,
+    occlusion_thresh: float = OCCLUSION_THRESH,
+    drift_px: float = GN_DRIFT_PX,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ICP+RGB rows against a FROZEN model sample (Lucas-Kanade style): the
     ICP association stays fixed, the RGB residual is linearised around uv0,
@@ -301,8 +312,8 @@ def so3_rows_frozen(
     uv0: torch.Tensor,  # [P,2]
     R: torch.Tensor,
     intr: CameraIntrinsics,
-    max_residual: float = 255.0,
-    drift_px: float = 3.0,
+    max_residual: float = RGB_MAX_RESIDUAL,
+    drift_px: float = SO3_DRIFT_PX,
 ) -> torch.Tensor:
     """SO3 photometric rows [P,8] against a FROZEN model sample."""
     rd = torch.sum(R * d[:, None, :], dim=-1)
@@ -329,7 +340,7 @@ def so3_rows_packed(
     model_pack: torch.Tensor,
     R: torch.Tensor,
     intr: CameraIntrinsics,
-    max_residual: float = 255.0,
+    max_residual: float = RGB_MAX_RESIDUAL,
 ) -> torch.Tensor:
     """Rotation-only homography-warp rows [P,8] (exact re-association)."""
     H, W = intensity_c.shape
@@ -383,8 +394,8 @@ def rgb_rows(
     intr: CameraIntrinsics,
     depth_m: torch.Tensor | None = None,
     min_grad: float = RGB_MIN_GRAD,
-    max_residual: float = 255.0,
-    occlusion_thresh: float = 0.15,
+    max_residual: float = RGB_MAX_RESIDUAL,
+    occlusion_thresh: float = OCCLUSION_THRESH,
 ) -> torch.Tensor:
     """Photometric rows [H*W, 8] ``[(p x g3), g3, r, 1]`` for
     ``r = I_m(pi(A v_c)) - I_c``: model intensity and Sobel gradients sampled
@@ -418,7 +429,7 @@ def so3_rows(
     R: torch.Tensor,
     intr: CameraIntrinsics,
     min_grad: float = 0.0,
-    max_residual: float = 255.0,
+    max_residual: float = RGB_MAX_RESIDUAL,
 ) -> torch.Tensor:
     """Rotation-only photometric rows [H*W, 8] ``[Jw (3), r, 0, 0, 0, 1]``:
     each unit-z ray is rotated by R and projected (the homography warp

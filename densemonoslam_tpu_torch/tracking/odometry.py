@@ -10,6 +10,12 @@ The one data-dependent branch is the starvation fallback of `_gn_level`
 (redo a level with exact re-association when its first frozen iteration
 starves): one `utils.graphs.branch` per level on the device flag, the
 reference's `lax.cond` per level.
+
+On the card each iteration is one launch of the fused kernel
+(`ops.track_iter`: rows, Gram sums, solve and update), whose carry stays
+in device memory from launch to launch; on the CPU the same iterations are
+the plain op-by-op composition below (`reductions` rows, `gram`,
+`solve_se3` / `solve_so3`, `_advance`).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
-from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, warp
+from densemonoslam_tpu_torch.ops import geometry, preprocess, reductions, track_iter, warp
 from densemonoslam_tpu_torch.utils import graphs, se3
 
 ITERATIONS_DEFAULT = (4, 5, 10)
@@ -171,19 +177,39 @@ def _so3_prealign(
             M = reductions.so3_rows_frozen(d, i_flat, smp, uv0, R, intr_top)
         G = reductions.gram(M)
         err = G[3, 3] / torch.clamp(G[7, 7], min=1.0)
-        dw = reductions.solve_so3(G[:3, :3], G[:3, 3], damping=1e-4)
-        ok = (G[7, 7] > 50) & torch.all(torch.isfinite(dw))
+        dw = reductions.solve_so3(G[:3, :3], G[:3, 3], damping=reductions.SO3_DAMPING)
+        ok = (G[7, 7] > reductions.SO3_MIN_INLIERS) & torch.all(torch.isfinite(dw))
         R_new = torch.where(ok, se3.so3_exp(dw) @ R, R)
         improved = err < err_best
         R_best_new = torch.where(improved, R, R_best)
         err_best_new = torch.minimum(err, err_best)
         R_next = torch.where(improved, R_new, R_best_new)  # diverged: roll back
-        step_done = ~ok | (torch.sum(dw * dw) < 1e-10)
+        step_done = ~ok | (torch.sum(dw * dw) < reductions.SO3_STEP_TOL)
         R_best = torch.where(done, R_best, R_best_new)
         err_best = torch.where(done, err_best, err_best_new)
         R = torch.where(done, R, R_next)
         done = done | step_done
     return R
+
+
+def _so3_prealign_fused(
+    model: ModelPyramid, frame: FramePyramid, intr_top: CameraIntrinsics, A0: torch.Tensor
+) -> torch.Tensor:
+    """`_so3_prealign` on the card, one launch an iteration; returns A0
+    with its rotation replaced (a view of the carry)."""
+    lv = len(frame.intensity) - 1
+    i_c, pack_m = frame.intensity[lv], model.pack[lv]
+    dev = i_c.device
+    carry = torch.empty(track_iter.SO3_CARRY, dtype=torch.float32, device=dev)
+    sample = torch.empty(i_c.numel() * track_iter.SO3_SAMPLE, dtype=torch.float32, device=dev)
+    src = A0.contiguous()
+    exact = min(3, SO3_ITERATIONS)
+    for k in range(SO3_ITERATIONS):
+        track_iter.so3_iteration(
+            i_c, pack_m, intr_top, src if k == 0 else carry, carry, fresh=k == 0,
+            sample=sample if k >= exact else None, write_sample=k == exact,
+        )
+    return carry[track_iter.A].view(4, 4)
 
 
 class _Level(NamedTuple):
@@ -202,8 +228,9 @@ def _solve_iter(lvl: _Level, M_icp, M_rgb):
     G_icp, G_rgb, JtJ, Jtr = reductions.combined_system(
         M_icp, M_rgb, icp_weight=lvl.icp_weight, rgb_scale=RGB_UNIT_SCALE
     )
-    xi = reductions.solve_se3(JtJ, Jtr, damping=1e-8)
-    ok = torch.all(torch.isfinite(xi)) & ((G_icp.inliers > 10) | (G_rgb.inliers > 10))
+    xi = reductions.solve_se3(JtJ, Jtr, damping=reductions.GN_DAMPING)
+    enough = reductions.GN_MIN_INLIERS
+    ok = torch.all(torch.isfinite(xi)) & ((G_icp.inliers > enough) | (G_rgb.inliers > enough))
     stats = (
         G_icp.residual_sq / torch.clamp(G_icp.inliers, min=1.0),
         G_icp.inliers,
@@ -218,7 +245,7 @@ def _advance(carry, xi, ok, stats_new):
     """One frozen-carry GN update: once `done`, later results are discarded."""
     A, stats, done = carry
     A_new = torch.where(ok, se3.apply_update(A, xi), A)
-    step_done = ~ok | (torch.sum(xi * xi) < 1e-9)
+    step_done = ~ok | (torch.sum(xi * xi) < reductions.GN_STEP_TOL)
     A = torch.where(done, A, A_new)
     stats = tuple(torch.where(done, o, n) for o, n in zip(stats, stats_new))
     return (A, stats, done | step_done)
@@ -248,13 +275,67 @@ def _frozen_iters(lvl: _Level, carry, n: int):
     first_ok = None
     for k in range(n):
         M_icp, M_rgb = reductions.joint_rows_frozen(
-            v_flat, n_flat, i_flat, smp, uv0, carry[0], lvl.intr, drift_px=2.0
+            v_flat, n_flat, i_flat, smp, uv0, carry[0], lvl.intr
         )
         xi, ok, stats_new = _solve_iter(lvl, M_icp, M_rgb)
         if k == 0:
             first_ok = ok
         carry = _advance(carry, xi, ok, stats_new)
     return carry, first_ok
+
+
+def _gn_level_fused(lvl: _Level, A0: torch.Tensor, level: int, iterations: int,
+                    nearest_finest: bool, exact_iters: int):
+    """`_gn_level`'s iterations on the card, one launch each, with the same
+    schedule: exact, then frozen against one sample, the starvation
+    fallback as a branch; or exact throughout.  Returns (A, stats), views
+    of the level's carry.  `track` runs only levels with iterations."""
+    if iterations < 1:
+        raise ValueError(f"a fused level needs at least one iteration, got {iterations}")
+    dev = A0.device
+    carry = torch.empty(track_iter.GN_CARRY, dtype=torch.float32, device=dev)
+    src = [A0.contiguous(), True]  # what the next launch starts from, and whether it is fresh
+
+    def iterate(n, **kw):
+        for _ in range(n):
+            track_iter.gn_iteration(
+                lvl.v_c, lvl.n_c, lvl.i_c, lvl.pack_m, lvl.intr, src[0], carry, fresh=src[1],
+                bilinear=lvl.bilinear, icp_weight=lvl.icp_weight, rgb_scale=RGB_UNIT_SCALE, **kw,
+            )
+            src[:] = [carry, False]
+
+    def result():
+        return carry[track_iter.A].view(4, 4), (
+            carry[track_iter.ICP_ERR], carry[track_iter.ICP_INL], carry[track_iter.RGB_ERR],
+            carry[track_iter.RGB_INL], carry[track_iter.JTJ].view(6, 6),
+        )
+
+    if iterations > 12:
+        # as `_gn_level`: `done` read every 10 iterations to stop early
+        for start in range(0, iterations, 10):
+            iterate(min(10, iterations - start))
+            if bool(carry[track_iter.DONE]):
+                break
+        return result()
+    ex = min(exact_iters, iterations) if nearest_finest else iterations
+    iterate(ex)
+    rest = iterations - ex
+    if rest > 0:
+        sample = torch.empty(lvl.i_c.numel() * track_iter.GN_SAMPLE, dtype=torch.float32,
+                             device=dev)
+        pre = torch.empty(track_iter.GN_CARRY, dtype=torch.float32, device=dev)
+        starved = torch.empty((), dtype=torch.bool, device=dev)
+        # the first frozen iteration samples the model, keeps the carry it
+        # started from and flags starvation; the rest read the sample
+        iterate(1, sample=sample, write_sample=True, pre=pre, starved=starved)
+        iterate(rest - 1, sample=sample)
+
+        def refit():
+            src[:] = [pre, False]
+            iterate(rest)
+
+        graphs.branch(starved, refit, f"starved{level}")
+    return result()
 
 
 def _gn_level(
@@ -286,6 +367,8 @@ def _gn_level(
         bilinear=not (nearest_finest and level <= 1),
         icp_weight=0.0 if rgb_only else icp_weight,
     )
+    if A0.is_cuda:
+        return _gn_level_fused(lvl, A0, level, iterations, nearest_finest, exact_iters)
     dev = A0.device
     inf = torch.full((), float("inf"), device=dev)
     zero = torch.zeros((), device=dev)
@@ -345,9 +428,12 @@ def track(
     A = A_init
     if use_so3 and levels > 1:
         # warm-started from A_init's rotation, then replaces it
-        R = _so3_prealign(model, frame, intr.scaled(levels - 1), A[:3, :3])
-        A = A.clone()
-        A[:3, :3] = R
+        if A.is_cuda:
+            A = _so3_prealign_fused(model, frame, intr.scaled(levels - 1), A)
+        else:
+            R = _so3_prealign(model, frame, intr.scaled(levels - 1), A[:3, :3])
+            A = A.clone()
+            A[:3, :3] = R
 
     coarse_iters = sum(
         iterations[lv] for lv in range(1, min(levels, len(iterations))) if pyramid

@@ -107,6 +107,336 @@ def test_gram_kernel_rejects_bad_input_on_cuda(cuda):
         tgram.gram(unaligned)
 
 
+# ------------------------------------------- the fused tracking iteration (K1)
+
+def _track_case(W, H, levels=4, f0=5, f1=6):
+    """Frame f1 tracked against frame f0's pyramid on the revisit orbit with
+    a W x H camera (fx = fy = 528 W / 640), warm start ~1 cm / ~0.6 deg off
+    the true motion: (model, frame, intrinsics, A0), CPU tensors."""
+    from densemonoslam_tpu_torch.config import CameraConfig, CameraIntrinsics, FrameResolution
+    from densemonoslam_tpu_torch.tracking import odometry as todo
+    from densemonoslam_tpu_torch.utils import se3
+
+    intr = CameraIntrinsics(528.0 * W / 640, 528.0 * W / 640, W / 2 - 0.5, H / 2 - 0.5)
+    seq = SyntheticSequence(camera=CameraConfig(FrameResolution(W, H), intr, "track"),
+                            num_frames=40, radius=0.35, max_angle=0.3)
+    (rgb_m, d_m), (rgb_c, d_c) = seq.frame(f0), seq.frame(f1)
+    rel = np.linalg.inv(seq.gt_pose(f0)) @ seq.gt_pose(f1)
+    off = se3.se3_exp(torch.tensor([0.01, 0.0, -0.005, 0.01, -0.005, 0.0])).numpy()
+    A0 = torch.from_numpy((off @ rel).astype(np.float32))
+    model = todo.model_pyramid_from_frame(todo.build_frame_pyramid(
+        torch.from_numpy(rgb_m), torch.from_numpy(d_m), intr, levels))
+    frame = todo.build_frame_pyramid(torch.from_numpy(rgb_c), torch.from_numpy(d_c), intr, levels)
+    return model, frame, intr, A0
+
+
+def _to(tree, dev):
+    return type(tree)(*(tuple(x.to(dev) for x in field) for field in tree))
+
+
+def _level(model, frame, intr, lv, bilinear, rgb_only, dev, stride=2):
+    """`odometry._gn_level`'s `_Level` of pyramid level `lv` on `dev`."""
+    from densemonoslam_tpu_torch.ops import warp
+    from densemonoslam_tpu_torch.tracking import odometry as todo
+
+    v, n, i = frame.vmap[lv], frame.nmap[lv], frame.intensity[lv]
+    if i.numel() // (stride * stride) >= 4096:
+        v, n, i = (warp.decimate(x, stride) for x in (v, n, i))
+    return todo._Level(v_c=v.to(dev), n_c=n.to(dev), i_c=i.to(dev), pack_m=model.pack[lv].to(dev),
+                       intr=intr.scaled(lv), bilinear=bilinear,
+                       icp_weight=0.0 if rgb_only else 10.0)
+
+
+def _gn_carry(c, dev):
+    """A plain carry (A, stats, done) in the fused kernel's layout."""
+    A, (e_i, n_i, e_r, n_r, JtJ), done = c
+    out = torch.zeros(64)
+    out[:16] = A.reshape(16)
+    out[16:20] = torch.stack([e_i, n_i, e_r, n_r])
+    out[20:56] = JtJ.reshape(36)
+    out[56] = float(done)
+    return out.to(dev)
+
+
+def _assert_stats_close(fused, plain, what, count_slack):
+    """One 8-column block's sums against `gram_reference` of the plain rows.
+    Counts within `count_slack` rows: a row whose gate value lies within an
+    ulp of its threshold may round to the other side when a sum of three
+    products is taken in another order.  JtJ within 5e-4 of the block's
+    largest entry, Jtr and sum r^2 within 5e-5 of theirs: f32 sums of up
+    to 82k products (magnitudes 1e-6..1e6) in the kernel's block order
+    against BLAS's; a sequential sum, the worst order, reads 1.7e-4."""
+    assert abs(float(fused.inliers) - float(plain.inliers)) <= count_slack, what
+    for name, rtol in (("JtJ", 5e-4), ("Jtr", 5e-5), ("residual_sq", 5e-5)):
+        a, b = getattr(fused, name).cpu().double(), getattr(plain, name).double()
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= rtol * scale, (what, name)
+
+
+def _assert_carry_close(fused, plain, what, count_slack):
+    """The carry after an iteration: the pose within 1e-5 (one f32 GN step
+    from the same sums, rounded in another order: 1e-6 in a host emulation),
+    the errors within 1e-4 relative, the inlier counts as in
+    `_assert_stats_close`, JtJ within 5e-4 of its largest entry, `done`
+    exactly."""
+    fused = fused.cpu()
+    A, (e_i, n_i, e_r, n_r, JtJ), done = plain
+    np.testing.assert_allclose(fused[:16].numpy(), A.reshape(16).numpy(), atol=1e-5, err_msg=what)
+    for k, e in ((16, e_i), (18, e_r)):
+        np.testing.assert_allclose(float(fused[k]), float(e), rtol=1e-4, err_msg=what)
+    for k, n in ((17, n_i), (19, n_r)):
+        assert abs(float(fused[k]) - float(n)) <= count_slack, what
+    scale = float(JtJ.abs().max())
+    assert float((fused[20:56] - JtJ.reshape(36)).abs().max()) <= 5e-4 * scale, what
+    assert bool(fused[56] != 0) == bool(done), what
+
+
+# (W, H, level, bilinear, rgb_only): the main paths' GN shapes, revisit
+# 76800, 19200 and 4800 rows (levels 0-2 at row stride 2; level 3 is 4800
+# rows too, unstrided) and mono's 81920 (its level 0)
+GN_CASES = [(640, 480, 0, False, False), (640, 480, 1, False, False), (640, 480, 2, True, False),
+            (640, 480, 3, True, True), (1024, 320, 0, False, False)]
+
+
+@pytest.mark.parametrize("W,H,lv,bilinear,rgb_only", GN_CASES,
+                         ids=["revisit_76800", "revisit_19200", "revisit_4800",
+                              "revisit_4800_rgb_only", "mono_81920"])
+def test_track_iteration_matches_plain(cuda, W, H, lv, bilinear, rgb_only):
+    """One fused GN iteration against the plain composition (the
+    `reductions` rows, `gram_reference`, `solve_se3`, `_advance`, on the
+    CPU) from the same carry: exact, the first frozen iteration (which
+    samples and keeps the carry it started from) and a frozen one that
+    reads the sample; the G blocks, the carry's pose, stats and `done`, and
+    the starvation flag."""
+    from densemonoslam_tpu_torch.ops import reductions as tred
+    from densemonoslam_tpu_torch.ops import track_iter as ti
+    from densemonoslam_tpu_torch.tracking import odometry as todo
+
+    model, frame, intr, A0 = _track_case(W, H)
+    cpu = _level(model, frame, intr, lv, bilinear, rgb_only, "cpu")
+    dev = _level(model, frame, intr, lv, bilinear, rgb_only, cuda)
+    P = cpu.i_c.numel()
+    slack = 2 + 5e-4 * P
+    inf, zero = torch.full((), float("inf")), torch.zeros(())
+    c0 = (A0, (inf, zero, inf, zero, torch.eye(6)), torch.zeros((), dtype=torch.bool))
+    c1 = todo._exact_iters(cpu, c0, 1)
+    c2, first_ok = todo._frozen_iters(cpu, c1, 1)
+    c3, _ = todo._frozen_iters(cpu, c1, 2)
+    # the plain rows of each iteration, at the plain carry it started from
+    v, n, i = (x.reshape(P, -1).squeeze(-1) for x in (cpu.v_c, cpu.n_c, cpu.i_c))
+    rows0 = tred.joint_rows_packed(cpu.v_c, cpu.n_c, cpu.i_c, cpu.pack_m, c0[0], cpu.intr,
+                                   bilinear=bilinear)
+    rows1 = tred.joint_rows_packed(cpu.v_c, cpu.n_c, cpu.i_c, cpu.pack_m, c1[0], cpu.intr,
+                                   bilinear=bilinear)
+    u0, v0, _ = todo.geometry.project(todo.se3.transform_points(c1[0], v), cpu.intr)
+    smp = tred.sample_model(cpu.pack_m, u0, v0, bilinear=bilinear)
+    rows2 = tred.joint_rows_frozen(v, n, i, smp, torch.stack([u0, v0], -1), c2[0], cpu.intr)
+
+    carry = torch.empty(64, device=cuda)
+    sample = torch.empty(P * ti.GN_SAMPLE, device=cuda)
+    pre = torch.empty(64, device=cuda)
+    starved = torch.ones((), dtype=torch.bool, device=cuda)
+    kw = dict(bilinear=bilinear, icp_weight=dev.icp_weight, rgb_scale=todo.RGB_UNIT_SCALE)
+    steps = [
+        (A0.to(cuda), True, {}, rows0, c1),
+        (_gn_carry(c1, cuda), False, dict(sample=sample, write_sample=True, pre=pre,
+                                          starved=starved), rows1, c2),
+        (_gn_carry(c2, cuda), False, dict(sample=sample), rows2, c3),
+    ]
+    before = dict(klaunches.by_shape("track_iter"))
+    for k, (src, fresh, extra, (Mi, Mr), want) in enumerate(steps):
+        sums = ti.gn_iteration(dev.v_c, dev.n_c, dev.i_c, dev.pack_m, dev.intr, src, carry,
+                               fresh=fresh, **kw, **extra)
+        torch.cuda.synchronize()
+        G = tgram.gram_reference(torch.cat([Mi, Mr], dim=-1))
+        got = ti.unpack_sums(sums)
+        _assert_stats_close(got[0], tred.unpack_gram(G[:8, :8]), f"iteration {k} ICP", 2)
+        _assert_stats_close(got[1], tred.unpack_gram(G[8:, 8:]), f"iteration {k} RGB", 2)
+        _assert_carry_close(carry, want, f"iteration {k}", slack)
+    _assert_carry_close(pre, c1, "carry before the first frozen iteration", 0)
+    assert bool(starved) == bool(~c1[2] & ~first_ok)
+    after = klaunches.by_shape("track_iter")
+    assert after["gn_exact"] - before.get("gn_exact", 0) == 1
+    assert after["gn_frozen"] - before.get("gn_frozen", 0) == 2
+
+
+def _so3_plain(R, R_best, err_best, done, M):
+    """One iteration of `odometry._so3_prealign` on the rows M (plain)."""
+    from densemonoslam_tpu_torch.ops import reductions as tred
+    from densemonoslam_tpu_torch.utils import se3
+
+    G = tgram.gram_reference(M)
+    err = G[3, 3] / torch.clamp(G[7, 7], min=1.0)
+    dw = tred.solve_so3(G[:3, :3], G[:3, 3], damping=1e-4)
+    ok = (G[7, 7] > 50) & torch.all(torch.isfinite(dw))
+    R_new = torch.where(ok, se3.so3_exp(dw) @ R, R)
+    improved = err < err_best
+    R_best_new = torch.where(improved, R, R_best)
+    err_best_new = torch.minimum(err, err_best)
+    R_next = torch.where(improved, R_new, R_best_new)
+    step_done = ~ok | (torch.sum(dw * dw) < 1e-10)
+    return (torch.where(done, R, R_next), torch.where(done, R_best, R_best_new),
+            torch.where(done, err_best, err_best_new), done | step_done, G)
+
+
+def test_so3_iteration_matches_plain(cuda):
+    """The SO3 pre-align at revisit's coarsest level (4800 rows x 8): each
+    of its ten fused iterations (3 exact, the sampling one, 6 frozen) from
+    the plain carry against the plain iteration (`so3_rows_packed` /
+    `so3_rows_frozen`, `gram_reference`, `solve_so3`, the rollback); then
+    the whole fused pre-align against `_so3_prealign` on the CPU.  The same
+    tolerances as the GN iterations (rotation within 1e-5)."""
+    from densemonoslam_tpu_torch.ops import reductions as tred
+    from densemonoslam_tpu_torch.ops import track_iter as ti
+    from densemonoslam_tpu_torch.tracking import odometry as todo
+
+    model, frame, intr, A0 = _track_case(640, 480)
+    lv = 3
+    it = intr.scaled(lv)
+    i_c, pack = frame.intensity[lv], model.pack[lv]
+    H, W = i_c.shape
+    d = tred.unit_rays(H, W, it, "cpu")
+    R, R_best = A0[:3, :3], A0[:3, :3]
+    err_best, done = torch.full((), float("inf")), torch.zeros((), dtype=torch.bool)
+    carry = torch.empty(ti.SO3_CARRY, device=cuda)
+    sample = torch.empty(H * W * ti.SO3_SAMPLE, device=cuda)
+    smp = uv0 = None
+    for k in range(todo.SO3_ITERATIONS):
+        if k == 3:
+            u0, v0, _ = todo.geometry.project(torch.sum(R * d[:, None, :], dim=-1), it)
+            smp, uv0 = tred.sample_model(pack, u0, v0), torch.stack([u0, v0], -1)
+        M = (tred.so3_rows_packed(i_c, pack, R, it) if k < 3
+             else tred.so3_rows_frozen(d, i_c.reshape(-1), smp, uv0, R, it))
+        src = A0.clone()
+        src[:3, :3] = R
+        src = torch.cat([src.reshape(16), R_best.reshape(9), err_best.reshape(1),
+                         done.to(torch.float32).reshape(1), torch.zeros(5)]).to(cuda)
+        sums = ti.so3_iteration(i_c.to(cuda), pack.to(cuda), it, src, carry, fresh=k == 0,
+                                sample=sample if k >= 3 else None, write_sample=k == 3)
+        R, R_best, err_best, done, G = _so3_plain(R, R_best, err_best, done, M)
+        (got,) = ti.unpack_sums(sums.cpu())
+        JtJ, Jtr = G[:3, :3], G[:3, 3]
+        assert abs(float(got.inliers) - float(G[7, 7])) <= 2, k
+        for a, b, rtol in ((got.JtJ, JtJ, 5e-4), (got.Jtr, Jtr, 5e-5),
+                           (got.residual_sq, G[3, 3], 5e-5)):
+            assert float((a - b).abs().max()) <= rtol * float(b.abs().max()), k
+        out = carry.cpu()
+        np.testing.assert_allclose(out[:16].view(4, 4)[:3, :3].numpy(), R.numpy(), atol=1e-5)
+        np.testing.assert_allclose(out[16:25].numpy(), R_best.reshape(9).numpy(), atol=1e-5)
+        np.testing.assert_allclose(float(out[25]), float(err_best), rtol=1e-4)
+        assert bool(out[26] != 0) == bool(done), k
+        np.testing.assert_array_equal(out[:16].view(4, 4)[:3, 3].numpy(), A0[:3, 3].numpy())
+    whole = todo._so3_prealign_fused(_to(model, cuda), _to(frame, cuda), it, A0.to(cuda))
+    np.testing.assert_allclose(whole[:3, :3].cpu().numpy(),
+                               todo._so3_prealign(model, frame, it, A0[:3, :3]).numpy(), atol=1e-5)
+
+
+def test_track_iteration_is_bit_identical(cuda):
+    """Two eager runs of an exact, a sampling and a frozen iteration give the
+    same bits, and so does a CUDA graph of the three, replayed twice."""
+    from densemonoslam_tpu_torch.ops import track_iter as ti
+    from densemonoslam_tpu_torch.tracking import odometry as todo
+
+    model, frame, intr, A0 = _track_case(640, 480)
+    lvl = _level(model, frame, intr, 0, False, False, cuda)
+    A0 = A0.to(cuda)
+
+    def three():
+        carry = torch.empty(64, device=cuda)
+        sample = torch.empty(lvl.i_c.numel() * ti.GN_SAMPLE, device=cuda)
+        kw = dict(bilinear=False, icp_weight=10.0, rgb_scale=todo.RGB_UNIT_SCALE)
+        args = (lvl.v_c, lvl.n_c, lvl.i_c, lvl.pack_m, lvl.intr)
+        s = [ti.gn_iteration(*args, A0, carry, fresh=True, **kw),
+             ti.gn_iteration(*args, carry, carry, fresh=False, sample=sample, write_sample=True,
+                             **kw),
+             ti.gn_iteration(*args, carry, carry, fresh=False, sample=sample, **kw)]
+        return torch.cat([carry, *s])
+
+    eager = [three(), three()]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        three()  # the capture stream's scratch exists before the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = three()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(eager[0], eager[1])
+    assert all(torch.equal(r, eager[0]) for r in replays)
+
+
+@pytest.mark.parametrize("W,H", [(640, 480), (1024, 320)])
+def test_track_on_card_matches_cpu(cuda, W, H):
+    """A whole `odometry.track` at the cells' settings (4 levels, iterations
+    (4, 5, 10, 10), row stride 2, SO3 on) on the card against the CPU's plain
+    path: the pose within 1e-4 m and 1e-4 rad (two f32 runs of 39
+    iterations, `tests/test_torch_tracking.py`'s tolerance), inliers within
+    0.1%; every iteration one fused launch (39, by mode), counted under K1
+    at its shapes, and at most 60 device operations in the call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from densemonoslam_tpu_torch.tracking import odometry as todo
+
+    model, frame, intr, A0 = _track_case(W, H)
+    kw = dict(iterations=(4, 5, 10, 10), icp_weight=10.0, row_stride=2)
+    ref = todo.track(model, frame, A0, intr, **kw)
+    m, f, a = _to(model, cuda), _to(frame, cuda), A0.to(cuda)
+    todo.track(m, f, a, intr, **kw)  # builds the kernel
+    torch.cuda.synchronize()
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            # views, allocations, the branch's host read and profiler
+            # ranges launch nothing
+            skip = (func.is_view or func.namespace == "profiler"
+                    or func in (torch.ops.aten.empty.memory_format,
+                                torch.ops.aten._local_scalar_dense.default))
+            Ops.n += 0 if skip else 1
+            return func(*args, **(kwargs or {}))
+
+    before = klaunches.COUNTS.copy()
+    with Ops():
+        res = todo.track(m, f, a, intr, **kw)
+    torch.cuda.synchronize()
+    delta = klaunches.COUNTS.copy()
+    delta.subtract(before)
+    modes = {s: n for (k, s), n in delta.items() if k == "track_iter" and n}
+    assert modes == {"gn_exact": 2, "gn_frozen": 27, "so3_exact": 3, "so3_frozen": 7}
+    assert sum(n for (k, _), n in delta.items() if k == "gram") == 39
+    assert Ops.n + 39 <= 60, Ops.n
+    assert not bool(res.failed) and not bool(ref.failed)
+    dT = np.linalg.inv(ref.A.numpy()) @ res.A.cpu().numpy()
+    assert np.linalg.norm(dT[:3, 3]) < 1e-4
+    assert np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2, -1, 1)) < 1e-4
+    for name in ("icp_inliers", "rgb_inliers"):
+        a_, b_ = float(getattr(res, name)), float(getattr(ref, name))
+        assert abs(a_ - b_) <= 1e-3 * b_, name
+
+
+def test_track_iteration_rejects_bad_input_on_cuda(cuda):
+    """The wrapper raises on a card tensor of the wrong dtype, a pack that is
+    not contiguous or not 16-byte aligned, and a tensor left on the CPU."""
+    from densemonoslam_tpu_torch.config import CameraIntrinsics
+    from densemonoslam_tpu_torch.ops import track_iter as ti
+
+    intr = CameraIntrinsics(66.0, 66.0, 39.5, 29.5)
+    i_c, pack = torch.zeros(60, 80, device=cuda), torch.zeros(60, 80, 12, device=cuda)
+    carry = torch.zeros(ti.SO3_CARRY, device=cuda)
+    bad = [(i_c.double(), pack, carry), (i_c, pack.transpose(0, 1), carry),
+           (i_c, torch.zeros(60 * 80 * 12 + 1, device=cuda)[1:].view(60, 80, 12), carry),
+           (i_c, pack, carry.cpu())]
+    for a, b, c in bad:
+        with pytest.raises(ValueError):
+            ti.so3_iteration(a, b, intr, c, carry, fresh=True)
+
+
 def test_engine_on_cuda_matches_cpu(cuda):
     """Eight frames of the 160x120 engine on the GPU and on the CPU: poses
     within 0.5 mm / 1e-3 rad (different summation orders in the Gram and

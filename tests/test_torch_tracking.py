@@ -219,3 +219,24 @@ def test_frame_to_frame_accumulated_run_matches_reference():
     assert err < 0.01, f"ATE {err:.4f} m"
     gaps = [np.linalg.norm(a[:3, 3] - b[:3, 3]) for a, b in zip(pt, pj)]
     assert max(gaps) < 5e-4, gaps
+
+
+def test_track_on_the_cpu_takes_the_plain_path(setup, monkeypatch):
+    """A CPU track runs the plain op-by-op composition: the fused iteration's
+    wrapper is never called, and no K1 or fused-iteration launch is
+    counted."""
+    from densemonoslam_tpu_torch.ops import track_iter
+    from densemonoslam_tpu_torch.utils import launches
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path called the fused iteration")
+
+    monkeypatch.setattr(track_iter, "gn_iteration", refuse)
+    monkeypatch.setattr(track_iter, "so3_iteration", refuse)
+    before = launches.COUNTS.copy()
+    for kw in (dict(iterations=(4, 5, 10), row_stride=2),
+               dict(iterations=(50, 50, 50), use_so3=False), dict(iterations=(4, 5, 10),
+                                                                  nearest_finest=False)):
+        res = todo.track(setup["tm"], setup["tf"], _t(setup["A0"]), setup["ti"], **kw)
+        assert not bool(res.failed)
+    assert launches.COUNTS == before
