@@ -15,7 +15,12 @@ The step's pose is compared where the step tracks it: with
 ``orb_tracking`` the step is handed the sparse tracker's pose, which
 ``sparse_pose_gap`` compares.  Parameters: ``frames``; ``map`` (default
 true; false leaves the map's reading out, where it does not separate sound
-runs from the control: `PERF.md` §2)."""
+runs from the control: `PERF.md` §2); ``pose`` (default ``"largest"``:
+``window_step_pose_gap``, the largest frame's gap; ``"median"``:
+``window_step_pose_gap_median``, the median of the frames whose step tracked
+in the reference, where a single frame's pose is ill-conditioned and the
+largest does not separate sound runs from the control: `PERF.md` §2).  Each
+frame's pose gap is logged."""
 
 from __future__ import annotations
 
@@ -107,9 +112,14 @@ class Check(_Base):
     def readings(self, control: bool = False):
         ctx = self.ctx
         net = mono_base.reference_net(ctx) if ctx.config.get("depth_net") else None
-        out = ref.window_step_readings(ctx.config, self.samples, net, ctx.device, control=control)
+        pose = self.params.get("pose", "largest")
+        gaps = []
+        out = ref.window_step_readings(ctx.config, self.samples, net, ctx.device, control=control,
+                                       pose=pose, gaps=gaps)
+        ctx.log(f"window_step{' control' if control else ''} pose gaps (frame, gap, tracked): "
+                + ", ".join(f"({j}, {g:.4g}, {int(t)})" for j, g, t in gaps))
         if ctx.config["engine"].get("orb_tracking"):
-            del out["window_step_pose_gap"]
+            del out["window_step_pose_gap" if pose == "largest" else "window_step_pose_gap_median"]
         if not self.params.get("map", True):
             del out["window_step_map_gap"]
         return out

@@ -31,7 +31,8 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, List, Sequence
+import statistics
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -163,7 +164,8 @@ def run_step(config: dict, smp: dict, net, device) -> tuple:
     block from ``smp["start"]``, the rest of the map zero, which a step
     does not read), with the program's pose input and flag and the
     frame's depth (the reference's CNN's where `net` is given).  Returns
-    the state after the step and the same block of its map."""
+    the state after the step, the same block of its map and the step's
+    stats row."""
     cfg = engine_config(config)
     H, W = int(config["camera"]["height"]), int(config["camera"]["width"])
     pre, start, cap = smp["pre"], int(smp["start"]), smp["capacity"]
@@ -180,7 +182,7 @@ def run_step(config: dict, smp: dict, net, device) -> tuple:
     step = rstep.make_step(intrinsics(config), H, W, cfg)
     new_state, stats = step(state, rgb, depth, smp["pose_in"].to(device), use, smp["weight"],
                             smp["cluster"])
-    return new_state, new_state.map_data[idx], stats[rstep.STAT_POSE0:]
+    return new_state, new_state.map_data[idx], stats
 
 
 def _block_rows(block: torch.Tensor, start: int, count, device) -> torch.Tensor:
@@ -189,28 +191,38 @@ def _block_rows(block: torch.Tensor, start: int, count, device) -> torch.Tensor:
 
 
 def window_step_readings(config: dict, samples: List[dict], net, device,
-                         control: bool = False) -> Dict[str, float]:
+                         control: bool = False, pose: str = "largest",
+                         gaps: Optional[List[tuple]] = None) -> Dict[str, float]:
     """``window_step_pose_gap`` (the step's pose, in its state and in its
-    stats row) and
+    stats row; the largest over `samples`) and
     ``window_step_map_gap`` (`map_gap` of the blocks after the step, both
     rendered by the reference from its pose, and of the stored
     predictions, each side's own render; the larger) over `samples`
-    (`checks/window_step.py`)."""
+    (`checks/window_step.py`).  With `pose` ``"median"`` the pose reading
+    is ``window_step_pose_gap_median``: the median gap of the samples whose
+    step tracked in the reference (its stats' track flag; a step that does
+    not track keeps its pose on either side), or of all samples where none
+    did.  `gaps`, where given, receives (frame, pose gap, tracked) of each
+    sample."""
+    pose_key = {"largest": "window_step_pose_gap", "median": "window_step_pose_gap_median"}[pose]
     if not samples:
-        return {"window_step_pose_gap": math.inf, "window_step_map_gap": math.inf}
-    pose_gaps, map_gaps = [], []
+        return {pose_key: math.inf, "window_step_map_gap": math.inf}
+    pose_gaps, map_gaps, tracked = [], [], []
     keys = ("map_count", "pose", "pred_depth")
     for smp in samples:
         start = int(smp["start"])
         with tf32(False):
-            r, r_block, r_stats = run_step(config, smp, net, device)
-            ref_post = dict({f: getattr(r, f) for f in keys}, block=r_block, stats_pose=r_stats)
+            r, r_block, r_row = run_step(config, smp, net, device)
+            ref_post = dict({f: getattr(r, f) for f in keys}, block=r_block,
+                            stats_pose=r_row[rstep.STAT_POSE0:])
+            tracked.append(bool(r_row[rstep.STAT_TRACK_OK] > 0))
             del r
         prog = dict(smp["post"], stats_pose=smp["stats_pose"])
         if control:
             with tf32(True):
-                c, c_block, c_stats = run_step(config, smp, net, device)
-                prog = dict({f: getattr(c, f) for f in keys}, block=c_block, stats_pose=c_stats)
+                c, c_block, c_row = run_step(config, smp, net, device)
+                prog = dict({f: getattr(c, f) for f in keys}, block=c_block,
+                            stats_pose=c_row[rstep.STAT_POSE0:])
                 del c
         ref_pose = ref_post["pose"].cpu().numpy()
         pose_gaps.append(max(
@@ -225,7 +237,13 @@ def window_step_readings(config: dict, samples: List[dict], net, device,
                             map_gap(prog["pred_depth"].to(device),
                                     ref_post["pred_depth"].to(device))))
         del ref_post, prog, d_ref, d_prog
-    return {"window_step_pose_gap": max(pose_gaps), "window_step_map_gap": max(map_gaps)}
+    if gaps is not None:
+        gaps.extend((smp["frame"], g, t) for smp, g, t in zip(samples, pose_gaps, tracked))
+    if pose == "largest":
+        stat = max(pose_gaps)
+    else:
+        stat = statistics.median([g for g, t in zip(pose_gaps, tracked) if t] or pose_gaps)
+    return {pose_key: stat, "window_step_map_gap": max(map_gaps)}
 
 
 # -------------------------------------------------------------- closure

@@ -7,9 +7,12 @@ A cell (`benchmark/workloads/<cell>.json`) names a configuration
 (`benchmark/configs/<config>.json`: camera, `EngineConfig` fields, tracker,
 depth net) and a traffic mix (parameters that `traffic/frames.py` reads).
 The run renders the cell's frames from the seed, builds the port's
-`Engine` for one camera, hands it the warm-up frames (set-up), then hands
-it frames back to back for `--seconds`, each as host numpy arrays through
-`Engine.process_frame` (the upload is inside the window), and afterwards
+`Engine` with one frontend a camera (the configuration's ``"cameras"``,
+default 1: ``cam0``, ``cam1``, ...), hands it the warm-up frames (set-up),
+then hands it frames for `--seconds`, back to back or on the traffic's
+schedule, each as host numpy arrays through `Engine.process_frame` (the
+upload is inside the window).  A tick hands over one frame of every
+camera that has joined, in camera order.  Afterwards the run
 holds what the program produced against the plain reference under
 `benchmark/reference/` (`correct`): each check the cell names is a
 `benchmark/checks/<check>.py`, its limits are the cell's ``"limits"``.
@@ -58,6 +61,7 @@ ROOT = os.path.dirname(BENCH)
 FORBIDDEN = ("jax", "jaxlib", "flax", "densemonoslam_tpu")
 MiB = float(1 << 20)
 POSE = slice(13, 29)  # the stats row's tracked pose, row-major 4x4
+BLOCK_ROWS = 1 << 20  # map rows read at a time: a block's temporaries set no memory peak
 
 
 def log(msg: str) -> None:
@@ -137,22 +141,26 @@ class Spec:
 
 class Ctx:
     """What a per-layer metric's `install` and `read` and a check see: the
-    engine and camera under test, the run's seed, configuration and
+    engine and cameras under test, the run's seed, configuration and
     traffic, the window's frames, the trace of the traced span, its
-    counters, and a dict for the metric's own probes."""
+    counters, and a dict for the metric's own probes.  `frontend` and
+    `traffic` are the first camera's (``cam0``); `frontends` and
+    `traffics` give every camera's by name, in camera order."""
 
-    def __init__(self, spec, engine, frontend, device, seed: int, traffic):
+    def __init__(self, spec, engine, frontends: dict, device, seed: int, traffics: dict):
         import torch
 
         self.spec = spec
         self.config = spec.config
         self.engine = engine
-        self.frontend = frontend
+        self.frontends = frontends  # name -> Frontend
+        self.frontend = next(iter(frontends.values()))
         self.device = device
         self.on_card = device.type == "cuda"
         self.sync = torch.cuda.synchronize if self.on_card else (lambda: None)
         self.seed = seed
-        self.traffic = traffic  # traffic.frames.Traffic
+        self.traffics = traffics  # name -> traffic.frames.Traffic
+        self.traffic = next(iter(traffics.values()))
         self.probes: dict = {}
         self.in_window = False
         self.in_span = False
@@ -168,6 +176,9 @@ class Ctx:
         self.seconds = 0.0  # the window's length, as asked
         self.t_window = 0.0  # seconds into the window of the frame being handed over
         self.probing = False  # a check copies the program's state in this frame or call
+        # on a schedule: (due, handed over) seconds into the window of each
+        # window frame before the traced span that no check copies
+        self.handovers: list = []
         self.log = log
 
 
@@ -181,9 +192,10 @@ def _card_line() -> str:
         return "nvidia-smi not readable"
 
 
-def build_engine(spec: Spec, traffic, device):
-    """The port's engine for the cell's configuration, one camera at the
-    traffic's first ground-truth pose."""
+def build_engine(spec: Spec, traffics: list, device):
+    """The port's engine for the cell's configuration and its frontends by
+    name: camera k is ``cam{k}``, in its own map, at its traffic's first
+    ground-truth pose.  All cameras share the configuration's camera."""
     import numpy as np
 
     from densemonoslam_tpu_torch.config import (
@@ -196,8 +208,11 @@ def build_engine(spec: Spec, traffic, device):
                           CameraIntrinsics(float(c["fx"]), float(c["fy"]),
                                            float(c["cx"]), float(c["cy"])), "bench")
     eng = Engine(camera, EngineConfig(**spec.config["engine"]), device=device)
-    fe = eng.frontend("cam0")
-    fe.pose = traffic.gt_pose(0).astype(np.float32)
+    frontends = {}
+    for k, traffic in enumerate(traffics):
+        fe = eng.frontend(f"cam{k}")
+        fe.pose = traffic.gt_pose(0).astype(np.float32)
+        frontends[fe.name] = fe
     net = spec.config.get("depth_net")
     if net:
         from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
@@ -207,32 +222,62 @@ def build_engine(spec: Spec, traffic, device):
     if tracker is not None:
         from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 
-        fe.sparse_tracker = SparseTracker(camera.intrinsics, device=device, **tracker)
-        fe.sparse_tracker.pose = fe.pose
-    return eng, fe
+        for fe in frontends.values():
+            fe.sparse_tracker = SparseTracker(camera.intrinsics, device=device, **tracker)
+            fe.sparse_tracker.pose = fe.pose
+    return eng, frontends
 
 
 def time_step(ctx) -> None:
-    """CUDA events just before and after each window frame's step (the
+    """CUDA events just before and after each window frame's step (every
     camera's `step_fn`, the graph replay), before the traced span (the
-profiler's cost outlasts the span), into
-    ``ctx.probes["step_events"]``: two event records a frame, no wait."""
+    profiler's cost outlasts the span), into ``ctx.probes["step_events"]``:
+    two event records a frame, no wait.  A step that `Engine._recompile`
+    replaces (a merge that changes a camera's map) is wrapped again."""
     import torch
 
-    inner = ctx.frontend.step_fn
     pairs = ctx.probes.setdefault("step_events", [])
 
-    def timed(*a, **k):
-        if not ctx.in_window or ctx.traced:
-            return inner(*a, **k)
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = inner(*a, **k)
-        e.record()
-        pairs.append((s, e))
-        return out
+    def wrap(fe) -> None:
+        inner = fe.step_fn
 
-    ctx.frontend.step_fn = timed
+        def timed(*a, **k):
+            if not ctx.in_window or ctx.traced:
+                return inner(*a, **k)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = inner(*a, **k)
+            e.record()
+            pairs.append((s, e))
+            return out
+
+        fe.step_fn = timed
+
+    for fe in ctx.frontends.values():
+        wrap(fe)
+    eng = ctx.engine
+    recompile = eng._recompile
+
+    def recompile_and_wrap(fe) -> None:
+        recompile(fe)
+        wrap(fe)
+
+    eng._recompile = recompile_and_wrap
+
+
+def map_rows(eng, name: str) -> tuple:
+    """(rows below the count, live rows last seen within `time_delta` ticks
+    of the session tick: the active set) of camera `name`'s map, read in
+    blocks of `BLOCK_ROWS`."""
+    from reference import surfel_map as rsm
+
+    be = eng.backend_of(name)
+    count, t_now, active = int(be.map_count), float(eng.global_tick), 0
+    for s in range(0, count, BLOCK_ROWS):
+        rows = be.map_data[s:min(s + BLOCK_ROWS, count)]
+        live = (rows[:, rsm.CONF] > 0) & (t_now - rsm.last_seen_any(rows) < eng.config.time_delta)
+        active += int(live.sum())
+    return count, active
 
 
 def prewarm(eng, device) -> None:
@@ -314,32 +359,48 @@ def main(argv=None, device: str | None = None) -> int:
     # ------------------------------------------------------------ set-up
     camera = framesmod.camera_of(spec.config)
     t_s = time.perf_counter()
-    traffic = framesmod.make(spec.cell["traffic"], camera, device=dev)
-    log(f"traffic: {len(traffic.lap_frames)} lap frames rendered in "
-        f"{time.perf_counter() - t_s:.3f} s, warm-up {traffic.warmup}, "
-        f"rate {traffic.rate_hz or 'back to back'}")
+    cameras = int(spec.config.get("cameras", 1))
+    mix = spec.cell["traffic"]
+    traffics = framesmod.make_cameras(mix, camera, cameras, device=dev)
+    setup_ticks, rate_hz = int(mix["warmup_frames"]), float(mix.get("rate_hz", 0.0))
+    renders = len({id(t.lap_frames) for t in traffics})
+    log(f"traffic: {cameras} camera(s), {renders} lap(s) of "
+        f"{'/'.join(str(len(t.lap_frames)) for t in traffics)} frames rendered in "
+        f"{time.perf_counter() - t_s:.3f} s, warm-up {setup_ticks}, "
+        f"rate {rate_hz or 'back to back'}")
 
     from densemonoslam_tpu_torch import engine as enginemod
     from densemonoslam_tpu_torch.ops import cuda_build
     from densemonoslam_tpu_torch.utils import graphs
 
     t_s = time.perf_counter()
-    eng, fe = build_engine(spec, traffic, dev)
+    eng, fes = build_engine(spec, traffics, dev)
     prewarm(eng, dev)
     log(f"engine and pre-warm: {time.perf_counter() - t_s:.3f} s "
         f"(kernel builds {cuda_build.BUILDS}, graph captures {graphs.CAPTURES})")
-    ctx = Ctx(spec, eng, fe, dev, args.seed, traffic)
+    traffic_of = dict(zip(fes, traffics))
+    ctx = Ctx(spec, eng, fes, dev, args.seed, traffic_of)
     ctx.seconds = args.seconds
+    first = ctx.frontend.name  # the camera the checks follow
     checks = [spec.check(name, ctx, params) for name, params in spec.cell["checks"].items()]
+    sent = dict.fromkeys(fes, 0)  # frames each camera has handed over
+
+    def joined(tick: int) -> list:
+        return [name for name in fes if traffic_of[name].join <= tick]
+
     t_s = time.perf_counter()
-    for j in range(traffic.warmup):
-        rgb, depth = traffic.frame(j)
-        eng.process_frame("cam0", rgb, depth, float(j), sync=False)
-        for c in checks:
-            c.after_setup_frame(j)
+    for tick in range(setup_ticks):
+        for name in joined(tick):
+            j = sent[name]
+            rgb, depth = traffic_of[name].frame(j)
+            eng.process_frame(name, rgb, depth, float(j), sync=False)
+            sent[name] += 1
+            if name == first:
+                for c in checks:
+                    c.after_setup_frame(j)
     ctx.sync()
-    be = eng.backend_of("cam0")
-    surfels0 = int(be.map_count)
+    maps0 = len(eng.maps)
+    at_start = {name: (fe.loops_closed, map_rows(eng, name)) for name, fe in fes.items()}
     log(f"warm-up frames: {time.perf_counter() - t_s:.3f} s")
     readers = {}
     if args.trace:
@@ -355,7 +416,7 @@ def main(argv=None, device: str | None = None) -> int:
     log(f"checks' probes and pinned buffers: {time.perf_counter() - t_s:.3f} s")
     gc.collect()
     ctx.sync()
-    builds_w, captures_w, closures0 = cuda_build.BUILDS, graphs.CAPTURES, fe.loops_closed
+    builds_w, captures_w = cuda_build.BUILDS, graphs.CAPTURES
     setup_s = process_age_s()
     log(f"set-up {setup_s:.3f} s")
 
@@ -382,37 +443,55 @@ def main(argv=None, device: str | None = None) -> int:
         ctx.in_window = True
         ctx.sync()
         t0 = time.perf_counter()
-        j = 0
+        j = 0  # window frames handed over, every camera's
+        tick = setup_ticks
         try:
             while True:
                 now = time.perf_counter()
+                if tracer is not None:
+                    running = tracer.running
+                    tracer.at_frame(now - t0, trace_cfg, caught)
+                    if tracer.running != running:
+                        # the window's clock stands while the profiler starts
+                        # or stops (seconds, late in a window), so that the
+                        # frames after the span still come
+                        t0 += time.perf_counter() - now
+                        now = time.perf_counter()
+                    if tracer.running and ctx.pre_span_frames is None:
+                        ctx.pre_span_frames, ctx.pre_span_s = j, now - t0
                 if now - t0 >= args.seconds:
                     break
-                if traffic.rate_hz > 0:
-                    due = t0 + j / traffic.rate_hz
+                if rate_hz > 0:
+                    due = t0 + (tick - setup_ticks) / rate_hz
                     if now < due:
                         time.sleep(due - now)
                     t_hand = due
                 else:
                     t_hand = time.perf_counter()
-                if tracer is not None:
-                    tracer.at_frame(now - t0, trace_cfg, caught)
-                    if tracer.running and ctx.pre_span_frames is None:
-                        ctx.pre_span_frames, ctx.pre_span_s = j, now - t0
                 ctx.t_window = now - t0
-                for c in checks:
-                    c.before_frame(j)
-                rgb, depth = traffic.frame(traffic.warmup + j)
-                with tracemod.frame_range(tracer):
-                    eng.process_frame("cam0", rgb, depth, float(traffic.warmup + j), sync=False)
-                ev = None
-                if on_card:
-                    ev = torch.cuda.Event()
-                    ev.record()
-                done_q.put((j, ev, t_hand))
-                if tracer is not None and tracer.running:
-                    ctx.span_frames += 1
-                j += 1
+                for n, name in enumerate(joined(tick)):
+                    t = traffic_of[name]
+                    k = sent[name]  # the camera's run frame
+                    if name == first:
+                        for c in checks:
+                            c.before_frame(k - t.warmup)
+                    if n and rate_hz <= 0:
+                        t_hand = time.perf_counter()
+                    rgb, depth = t.frame(k)
+                    if rate_hz > 0 and not (ctx.traced or ctx.probing):
+                        ctx.handovers.append((t_hand - t0, time.perf_counter() - t0))
+                    with tracemod.frame_range(tracer):
+                        eng.process_frame(name, rgb, depth, float(k), sync=False)
+                    ev = None
+                    if on_card:
+                        ev = torch.cuda.Event()
+                        ev.record()
+                    done_q.put((j, ev, t_hand))
+                    if tracer is not None and tracer.running:
+                        ctx.span_frames += 1
+                    sent[name] += 1
+                    j += 1
+                tick += 1
             if tracer is not None:
                 tracer.stop(caught)
             ctx.sync()
@@ -422,13 +501,20 @@ def main(argv=None, device: str | None = None) -> int:
             th.join(timeout=120)
             ctx.in_window = False
     n_frames = ctx.window_frames = j
+    window_frames = {name: sent[name] - traffic_of[name].warmup for name in fes}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     graphs.settle_counts()
+    cams = []
+    for name, fe in fes.items():
+        closed0, (rows0, active0) = at_start[name]
+        rows1, active1 = map_rows(eng, name)
+        cams.append(f"{name}: {window_frames[name]} frames, loop closures accepted "
+                    f"{fe.loops_closed - closed0}, map {eng.backend_of(name).name} rows "
+                    f"{rows0} -> {rows1}, active {active0} -> {active1}")
     log(f"window: {n_frames} frames in {t1 - t0:.4f} s; frame-time samples {len(lat)}; "
-        f"surfels {surfels0} at its start, {int(be.map_count)} at its end; captures in it "
-        f"{graphs.CAPTURES - captures_w}, nvcc builds in it {cuda_build.BUILDS - builds_w}; "
-        f"loop closures accepted in it {fe.loops_closed - closures0}; "
-        f"pacing waits {enginemod.PACING_WAITS}")
+        f"{'; '.join(cams)}; maps {maps0} at its start, {len(eng.maps)} at its end; captures "
+        f"in it {graphs.CAPTURES - captures_w}, nvcc builds in it "
+        f"{cuda_build.BUILDS - builds_w}; pacing waits {enginemod.PACING_WAITS}")
     if len(lat) != n_frames:
         log(f"{n_frames - len(lat)} frames never completed")
 
@@ -482,11 +568,12 @@ def main(argv=None, device: str | None = None) -> int:
     # ------------------------------------------------------------ correct
     for c in checks:
         c.after_window()
-    failed = sum(1 for r in fe.stats_log[traffic.warmup:traffic.warmup + n_frames]
+    failed = sum(1 for name, fe in fes.items()
+                 for r in fe.stats_log[traffic_of[name].warmup:sent[name]]
                  if not bool(torch.isfinite(r[POSE]).all()))
     # the program's state goes before the reference runs
-    ctx.engine = ctx.frontend = None
-    del eng, fe, be, readers, tracer
+    ctx.engine = ctx.frontend = ctx.frontends = None
+    del eng, fes, readers, tracer
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()

@@ -29,8 +29,7 @@ def make_copy(dst: Path, extra_metric: str | None = None) -> Path:
                          loop_min_inactive_frac=0.01, loop_inlier_frac=0.0, icp_count_thresh=0,
                          loop_icp_err_thresh=1.0, cov_thresh=1.0, loop_cons_err_thresh=1.0)
     (bench / "configs" / "tiny_rgbd.json").write_text(json.dumps(cfg))
-    real = [w for w in spec["workloads"]][0]["name"]
-    cell = json.loads((BENCH / "workloads" / f"{real}.json").read_text())
+    cell = json.loads((BENCH / "workloads" / "rgbd_vga.revisit_lap.json").read_text())
     cell.update(name=CELL, config="tiny_rgbd", trace={"start_s": 0.5, "span_s": 1.0})
     cell["checks"]["window_step"].update(frames=3)
     cell["checks"]["closure"].update(rows=4096)
@@ -65,6 +64,17 @@ def make_copy(dst: Path, extra_metric: str | None = None) -> Path:
             "def read(ctx):\n    return float(ctx.span_frames)\n")
     (dst / "BENCHMARK.json").write_text(json.dumps(spec))
     return bench
+
+
+def metric_entry(bench: Path, name: str, better: str, cells: list) -> dict:
+    """A `per_layer` entry for the reader `metrics/<name>.py` of the copy,
+    from its own constants, listing `cells`."""
+    spec = importlib.util.spec_from_file_location(f"tiny_metric_{name}",
+                                                  bench / "metrics" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {"name": name, "unit": mod.UNIT, "better": better, "source": mod.SOURCE,
+            "layer": mod.LAYER, "moves": mod.MOVES, "workloads": list(cells)}
 
 
 def run(bench: Path, seed: int, seconds: float = 12.0, trace: int = 0, capsys=None,

@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ("rgbd_vga.revisit_lap", "mono_kitti.street")
+CELLS = ("rgbd_vga.revisit_lap", "mono_kitti.street", "rgbd_vga_odometry.lap", "rgbd_vga.live_22hz")
 
 
 @pytest.mark.cuda

@@ -33,7 +33,7 @@ def test_added_files_are_found_by_name_and_a_sound_run_is_correct(bench, capsys)
     # the dropped-in metric was read; CPU runs carry no device metric
     assert out["metrics"]["frames_in_span"]["value"] > 0
     assert list(out)[-1] == "checks"
-    for name in ("start_pose_gap", "start_map_gap", "window_step_pose_gap", "closure_gap"):
+    for name in ("start_pose_gap", "start_map_gap", "window_step_pose_gap_median", "closure_gap"):
         assert out["checks"][name]["value"] <= out["checks"][name]["limit"]
 
 

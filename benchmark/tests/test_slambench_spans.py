@@ -11,7 +11,7 @@ import json
 import pytest
 import torch
 
-from slambench_tiny import CELL, MONO_CELL, make_copy, run
+from slambench_tiny import CELL, MONO_CELL, make_copy, metric_entry, run
 
 torch.set_num_threads(2)
 
@@ -21,7 +21,10 @@ NEW = {
     MONO_CELL: ("step_track_device_ms", "step_render_device_ms", "step_fuse_device_ms",
                 "depth_cnn_device_ms", "sparse_frontend_ms", "sparse_flush_ms"),
 }
-REAL = {CELL: "rgbd_vga.revisit_lap", MONO_CELL: "mono_kitti.street"}
+REAL = {CELL: "rgbd_vga_odometry.lap", MONO_CELL: "mono_kitti.street"}
+# the loop layer's readers, whose cells are out of BENCHMARK.json until the
+# program's tracking fault is mended (PERF.md §7): the tiny RGB-D cell lists them
+LOOP = (("loop_track_ms", "lower"), ("loop_accept_pct", "higher"))
 
 
 @pytest.fixture
@@ -35,6 +38,7 @@ def bench(tmp_path):
     for m in spec["per_layer"]:
         real = [w for w in m["workloads"] if w in REAL.values()]
         m["workloads"] = real + [tiny for tiny, r in REAL.items() if r in real]
+    spec["per_layer"] += [metric_entry(bench, name, better, [CELL]) for name, better in LOOP]
     spec_path.write_text(json.dumps(spec))
     cell_path = bench / "workloads" / f"{CELL}.json"
     cell = json.loads(cell_path.read_text())

@@ -4,11 +4,17 @@ the frames the program is handed out.
 A traffic mix is a dict of parameters (a cell file's ``"traffic"``):
 
 - ``trajectory``: ``"orbit"`` (the synthetic room's looping orbit,
-  `orbit.SyntheticSequence`) or ``"street"`` (the closed street lap,
-  `street.StreetSequence`);
-- ``lap``: frames in one lap; frame ``j`` of a run is lap frame
-  ``j % lap``: every run starts at the lap's frame 0, since a start
-  drawn from the seed would change the work a window holds;
+  `orbit.SyntheticSequence`), ``"street"`` (the closed street lap,
+  `street.StreetSequence`), or the name of a file ``<name>.py`` beside
+  this one whose ``Sequence`` class takes ``camera``, ``num_frames`` and
+  the ``sequence`` arguments and gives ``frame(i)`` and ``gt_pose(i)``;
+- ``lap``: frames in one lap; frame ``j`` of a camera's run is lap frame
+  ``(offset + j) % lap``: every run starts at the same lap frame, since a
+  start drawn from the seed would change the work a window holds;
+- ``offset`` (default 0): the lap frame a camera's run starts at;
+- ``join`` (default 0): the session tick at which a camera hands over its
+  first frame (a tick hands over one frame of every camera that has
+  joined, in camera order);
 - ``sequence``: the generator's own keyword arguments (radius, angle,
   noise, jitter, scene seed);
 - ``warmup_frames``: frames handed over in set-up, before the window;
@@ -17,9 +23,14 @@ A traffic mix is a dict of parameters (a cell file's ``"traffic"``):
   window, as a live sensor does;
 - ``render``: ``"host"`` (default) or ``"device"`` (the street only:
   `street_device`, the same frames from float64 on the run's device, where
-  the host's render would take most of the set-up).
+  the host's render would take most of the set-up);
+- ``per_camera``: for a configuration of several ``cameras``, one dict a
+  camera, each merged over the other keys for that camera (``sequence``,
+  ``lap``, ``offset``, ``join``); without it every camera takes the mix
+  as it is.
 
-Every lap frame is rendered once per run, as host numpy arrays (``rgb``
+Every lap frame is rendered once per run (cameras whose mixes differ only
+in ``offset`` and ``join`` share one render), as host numpy arrays (``rgb``
 uint8 ``[H, W, 3]``, ``depth`` float32 metres ``[H, W]``), on the host by a
 pool of spawned processes (one per core but one, at most 8) or on the
 device.  A mix whose ``depth`` is
@@ -29,8 +40,11 @@ device.  A mix whose ``depth`` is
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import json
 import multiprocessing
 import os
+import re
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +54,8 @@ from .orbit import SyntheticSequence
 from .street import StreetSequence
 
 _KINDS = {"orbit": SyntheticSequence, "street": StreetSequence}
+_MODULE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
+_PLACE = ("offset", "join")  # where a camera's run lies in the lap and the session
 _SEQ = None  # a render worker's sequence
 
 
@@ -47,12 +63,14 @@ _SEQ = None  # a render worker's sequence
 class Traffic:
     lap_frames: List[Tuple[np.ndarray, Optional[np.ndarray]]]
     gt_poses: List[np.ndarray]  # camera-to-world, per lap frame
-    warmup: int
+    warmup: int  # frames this camera hands over in the set-up
     rate_hz: float
+    offset: int = 0
+    join: int = 0
 
     def index(self, j: int) -> int:
         """Lap frame of run frame `j`."""
-        return j % len(self.lap_frames)
+        return (self.offset + j) % len(self.lap_frames)
 
     def frame(self, j: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         return self.lap_frames[self.index(j)]
@@ -69,8 +87,21 @@ def camera_of(config: dict) -> CameraConfig:
                                          float(c["cx"]), float(c["cy"])))
 
 
+def _kind(name: str):
+    """The sequence class of trajectory `name`: a kind of this module, or
+    the ``Sequence`` class of the file ``<name>.py`` beside it."""
+    if name in _KINDS:
+        return _KINDS[name]
+    if not _MODULE.match(name):
+        raise ValueError(f"trajectory {name!r} is not a module name")
+    mod = importlib.import_module(f".{name}", __package__)
+    if not hasattr(mod, "Sequence"):
+        raise ValueError(f"traffic/{name}.py has no Sequence class")
+    return mod.Sequence
+
+
 def _sequence(traffic: dict, camera: CameraConfig):
-    kind = _KINDS[traffic["trajectory"]]
+    kind = _kind(traffic["trajectory"])
     return kind(camera=camera, num_frames=int(traffic["lap"]), **traffic.get("sequence", {}))
 
 
@@ -81,6 +112,26 @@ def _init(traffic: dict, camera: CameraConfig) -> None:
 
 def _render(i: int):
     return _SEQ.frame(i)
+
+
+def make_cameras(traffic: dict, camera: CameraConfig, cameras: int, device=None) -> list:
+    """One `Traffic` a camera: its ``per_camera`` entry merged over the
+    mix's other keys.  A lap is rendered once for every camera whose mix
+    gives it.  The set-up's ticks (``warmup_frames``) are the cell's."""
+    base = {k: v for k, v in traffic.items() if k != "per_camera"}
+    own = traffic.get("per_camera", [{}] * cameras)
+    if len(own) != cameras:
+        raise ValueError(f"per_camera has {len(own)} entries for {cameras} cameras")
+    laps: dict = {}
+    out = []
+    for mix in (dict(base, **o) for o in own):
+        key = json.dumps({k: v for k, v in mix.items() if k not in _PLACE}, sort_keys=True)
+        if key not in laps:
+            laps[key] = make(mix, camera, device=device)
+        join = int(mix.get("join", 0))
+        out.append(dataclasses.replace(laps[key], offset=int(mix.get("offset", 0)), join=join,
+                                       warmup=max(int(base["warmup_frames"]) - join, 0)))
+    return out
 
 
 def make(traffic: dict, camera: CameraConfig, workers: int = 0, device=None) -> Traffic:
