@@ -40,7 +40,12 @@ keyed by the frame id, the session tick that `process_frame` sets when it
 starts; they are profiler ranges, and records while the recorder is on.
 `Frontend.loop_checks` counts the loop closures a camera attempted (each
 `try_local_loop` call and each hybrid closure of the sparse tracker's loop
-pair), beside `loops_closed`, those accepted.  `stage_ms` reads the device
+pair), beside `loops_closed`, those accepted; `intermap_checks` counts its
+queries of another map that reached `resolve_intermap`, beside
+`intermap_merges`, those that verified and merged its map into the other.
+A merge's work is the spans `merge.maps`, `merge.compact` and
+`merge.members`; the moved cameras capture their steps again at their next
+frame, inside `step.capture` (`utils.graphs`).  `stage_ms` reads the device
 times of a camera's step stages, stamped inside its graph.
 
 Entry points run on the card unless the caller passes `device="cpu"`.
@@ -113,6 +118,8 @@ class Frontend:
     fern_state: Optional[loopsmod.FernLoopState] = None
     loop_checks: int = 0  # loop closures attempted: local checks and hybrid closures
     loops_closed: int = 0  # and accepted
+    intermap_checks: int = 0  # queries of another map that reached `resolve_intermap`
+    intermap_merges: int = 0  # and those that verified: this camera's map moved
     last_loop_info: Optional[loopsmod.LoopInfo] = None
     last_loop_graph: Optional[dg.DeformGraph] = None  # of the last accepted closure
     sparse_tracker: Optional[SparseTracker] = None
@@ -659,9 +666,22 @@ class Engine:
         success (reference `resolveRelativeTransformationFern`, then
         `consumeReferenceFrame`): each other map with a fern DB is queried
         with this view's code, and the first one that verifies is merged
-        into (this camera's map moves into its frame)."""
+        into (this camera's map moves into its frame).  The view's code and
+        pyramid are built only when some other map has a fern DB."""
         cfg = self.config
         if fe.fern_state is None:
+            return
+        others = []
+        for other_name, other_be in self.maps.items():
+            if other_name == fe.map_name:
+                continue
+            other_fe = next(
+                (self.frontends[n] for n in other_be.contexts
+                 if self.frontends[n].fern_state is not None), None,
+            )
+            if other_fe is not None:
+                others.append((other_name, other_be, other_fe))
+        if not others:
             return
         depth_m = depth_raw / cfg.depth_factor
         ff = loopsmod.fern_factor(cfg)
@@ -672,20 +692,14 @@ class Engine:
         frame_pyr = odometry.build_frame_pyramid(
             rgb, depth_m, fe.camera.intrinsics, cfg.pyramid_levels
         )
-        for other_name, other_be in list(self.maps.items()):
-            if other_name == fe.map_name:
-                continue
-            other_fe = next(
-                (self.frontends[n] for n in other_be.contexts
-                 if self.frontends[n].fern_state is not None), None,
-            )
-            if other_fe is None:
-                continue
+        for other_name, other_be, other_fe in others:
+            fe.intermap_checks += 1
             pose_in_b, ok, _info = loopsmod.resolve_intermap(
                 frame_pyr, code, other_fe.fern_state.db, other_be.map_data,
                 other_be.map_count, fe.camera, cfg,
             )
             if ok:
+                fe.intermap_merges += 1
                 # T maps this camera's map coordinates into the other map's
                 self.merge_into(fe.map_name, other_name, pose_in_b @ np.linalg.inv(fe.pose))
                 return

@@ -21,6 +21,10 @@ so everything it initialises is initialised before the capture; otherwise
 it is a Python `if`, whose read of `pred` is the one host read of an eager
 program (a `utils.timer` span `host.read`).
 
+A capture (warm-up included) is the `utils.timer` span `step.capture`,
+keyed by the frame it happens in: a camera's step captures at its first
+frame, and again at its next one after a merge moved its map.
+
 Counters: `CAPTURES`, `REPLAYS`, `STATE_COPIES`, and `BRANCH_RUNS` (body
 runs per branch name).  A replay adds the kernel launches its capture
 recorded to `utils.launches`; the launches inside a branch body count only
@@ -256,7 +260,8 @@ class GraphedFn:
                     f"GraphedFn runs CUDA graphs only; got a tensor on {a.device}"
                 )
         if self.graph is None:
-            self._capture(args)
+            with timer.span("step.capture"):
+                self._capture(args)
         else:
             self._copy_in(args)
         self.graph.replay()

@@ -84,6 +84,47 @@ def test_merge_maps_matches_reference(nb, na):
     np.testing.assert_allclose(rows.numpy(), np.asarray(jrows), atol=ATOL)
 
 
+def _rigid(rng):
+    """A rigid transform of any rotation (axis-angle, angle up to pi) and a
+    translation of about a metre."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    a = rng.uniform(0.5, np.pi)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K
+    T[:3, 3] = rng.normal(0, 1, 3)
+    return T.astype(np.float32)
+
+
+@pytest.mark.parametrize("nb,na", [(100, 60), (4000, 900)], ids=["fits", "overflow"])
+def test_merge_maps_matches_reference_under_any_rotation(nb, na):
+    """As above with a random rigid transform of up to pi radians, where a
+    transform applied the wrong way round or transposed lands far off; the
+    moved normals keep unit length."""
+    rng = np.random.default_rng(nb + na)
+    data_b, data_a = _maps(rng, nb, na)
+    nrm = data_a[:na, 8:11]
+    data_a[:na, 8:11] = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+    T = _rigid(rng)
+    jd, jc, jdrop = jloops.merge_maps(
+        jnp.asarray(data_b), jnp.asarray(nb, jnp.int32), jnp.asarray(data_a),
+        jnp.asarray(na, jnp.int32), jnp.asarray(T),
+    )
+    td, tc, tdrop = tloops.merge_maps(
+        torch.from_numpy(data_b.copy()), torch.tensor(nb), torch.from_numpy(data_a),
+        torch.tensor(na), torch.from_numpy(T),
+    )
+    assert int(tc) == int(jc) and tdrop == int(jdrop)
+    np.testing.assert_allclose(td[:-1].numpy(), np.asarray(jd)[:-1], atol=ATOL)
+    moved = td[nb:int(tc)].numpy()
+    live = data_a[:na][data_a[:na, sm.CONF] > 0][: moved.shape[0]]
+    np.testing.assert_allclose(moved[:, 0:3], live[:, 0:3] @ T[:3, :3].T + T[:3, 3], atol=ATOL)
+    np.testing.assert_allclose(np.linalg.norm(moved[:, 8:11], axis=1), 1.0, atol=ATOL)
+    wrong = live[:, 0:3] @ T[:3, :3] + T[:3, 3]
+    assert np.abs(moved[:, 0:3] - wrong).max() > 0.1
+
+
 def test_merge_rel_banks_matches_reference():
     rng = np.random.default_rng(1)
 
