@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --k3     # phases 0 and 4b
 
 Phases (any failure raises, so the exit code is not 0):
 
 0. device: requires CUDA, prints the card's name and power limit, builds the
    hand-written kernels from `densemonoslam_tpu_torch/csrc/` with nvcc (one
-   process per source, started together), K1, K2, the IF-node condition
+   process per source, started together), K1, K2, K3, the IF-node condition
    setter of the captured programs (`graph_if.cu`) and the step's stage
    stamp (`stamp.cu`);
 1. kernel K1 (Gram reduction) against its plain PyTorch version at the
@@ -57,6 +58,14 @@ Phases (any failure raises, so the exit code is not 0):
    bit-identical reruns, times of the kernel, its previous design
    (`csrc/prev/deform.cu`) and the plain version beside the bound, and the
    share of warps on the kernel's uniform path;
+4b. kernel K3 (the render of the whole map, `csrc/zbuffer.cu`) against its
+   plain version (`splat.render_ops`, the exact two-scatter path) on a
+   1<<25-row map with 15 M rows in use, in the INACTIVE, ALL and ACTIVE
+   modes: the same winner on every pixel, no row at or above the count
+   drawn, the float maps within 1e-6 relative, a memset and two kernels a
+   call; device times of the kernel, of the whole `splat.render` call and
+   of the plain version beside the bound (`python3 chip_smoke.py --k3` runs
+   phase 0 and this phase alone);
 5. the closed-loop path: the JAX bench's closed-loop leg (revisit lap of 40
    frames, 45 warm-up + 60 timed frames, loop checks every 8 frames) with
    loops, K2 launches, host syncs, ATE and map checks; then, after the
@@ -176,10 +185,13 @@ from densemonoslam_tpu_torch.io.synthetic import SyntheticSequence
 from densemonoslam_tpu_torch.mapping import deformation as dg
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
 from densemonoslam_tpu_torch.models.depthnet import DepthPredictor
-from densemonoslam_tpu_torch.ops import cuda_build, deform, gram, preprocess, reductions
+from densemonoslam_tpu_torch.ops import (
+    cuda_build, deform, gram, preprocess, reductions, splat, zbuffer,
+)
 from densemonoslam_tpu_torch.tracking import odometry
 from densemonoslam_tpu_torch.tracking.sparse import SparseTracker
 from densemonoslam_tpu_torch.utils import graphs, timer
+from densemonoslam_tpu_torch.utils import se3 as se3mod
 from densemonoslam_tpu_torch.utils import launches as klaunches
 
 # the first is the kernels line's headline shape (the open loop's finest level)
@@ -372,8 +384,8 @@ def phase_device() -> str:
     log(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    libs = cuda_build.build("gram", "track_iter", "deform", "graph_if", "stamp", "prev/gram",
-                            "prev/deform")
+    libs = cuda_build.build("gram", "track_iter", "deform", "zbuffer", "graph_if", "stamp",
+                            "prev/gram", "prev/deform")
     log(f"[phase 0] built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     return smi
@@ -675,11 +687,12 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """K1's, K2's, the stage stamp's and the fused tracking iteration's
-    launches since the last `reset_counts`, settled."""
+    """K1's, K2's, K3's, the stage stamp's and the fused tracking
+    iteration's launches since the last `reset_counts`, settled."""
     settle()
     return dict(gram=klaunches.total("gram"), deform=klaunches.total("deform"),
-                stamp=klaunches.total("stamp"), track_iter=klaunches.total("track_iter"))
+                zbuffer=klaunches.total("zbuffer"), stamp=klaunches.total("stamp"),
+                track_iter=klaunches.total("track_iter"))
 
 
 def by_mode() -> dict:
@@ -1160,6 +1173,118 @@ def _synthetic_deform_case():
     d = torch.from_numpy(data).cuda()
     count = torch.full((), N - 4096, dtype=torch.int64, device="cuda")
     return d, count, graph
+
+
+# K3 at the revisit window's end: a 1<<25-row map with ~15 M rows in use
+# (PERF.md §4), rendered at 640x480 with rgbd_vga's camera
+K3_ROWS, K3_LIVE, K3_TIME, K3_TIME_DELTA = 1 << 25, 15_000_000, 100.0, 30
+K3_INTR, K3_W, K3_H = CameraIntrinsics(528.0, 528.0, 319.5, 239.5), 640, 480
+K3_FLOAT_RTOL = 1e-6
+K3_MODES = (("inactive", splat.MODE_INACTIVE), ("all", splat.MODE_ALL),
+            ("active", splat.MODE_ACTIVE))
+
+
+def _k3_map() -> tuple:
+    """(data, count, pose) on the card: a K3_ROWS-row map whose K3_LIVE rows
+    in use are surfels 0.3-8 m in front of the pose's camera (a 20th behind
+    it, a margin outside the image), a 10th of them dead, last seen over the
+    100 ticks before K3_TIME (about 70% outside the time window); the rows
+    above the count look alive and lie nearer, so a render that read one
+    would show it."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    a, b = 0.3, -0.2
+    R = torch.tensor([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
+                     dtype=torch.float64) @ torch.tensor(
+        [[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]], dtype=torch.float64)
+    pose = torch.eye(4, dtype=torch.float64)
+    pose[:3, :3] = R
+    pose[:3, 3] = torch.tensor([0.4, -0.3, 1.1], dtype=torch.float64)
+    pose = pose.to(torch.float32).to(dev)
+    n = K3_ROWS + 1
+    data = torch.zeros((n, sm.COLS), dtype=torch.float32, device=dev)
+    z = uniform(0.3, 8.0, n)
+    z[K3_LIVE:] = uniform(0.06, 0.29, n - K3_LIVE)
+    z = torch.where(uniform(0, 1, n) < 0.05, -z, z)
+    u, v = uniform(-30, K3_W + 30, n), uniform(-30, K3_H + 30, n)
+    i = K3_INTR
+    p_cam = torch.stack([(u - i.cx) / i.fx * z, (v - i.cy) / i.fy * z, z], -1)
+    n_cam = torch.stack([0.3 * torch.randn(n, generator=gen, device=dev),
+                         0.3 * torch.randn(n, generator=gen, device=dev),
+                         -torch.ones(n, device=dev)], -1)
+    n_cam = n_cam / n_cam.norm(dim=-1, keepdim=True)
+    data[:, sm.POS] = p_cam @ pose[:3, :3].T + pose[:3, 3]
+    data[:, sm.CONF] = torch.where(uniform(0, 1, n) < 0.1, -1.0, uniform(0.5, 10.0, n))
+    data[:, 4:7] = uniform(0, 255, n, 3)
+    data[:, sm.RADIUS] = uniform(0.002, 0.03, n)
+    data[:, sm.NORMAL] = n_cam @ pose[:3, :3].T
+    data[:, 12] = uniform(0, K3_TIME, n)
+    data[K3_LIVE:, sm.CONF] = 5.0
+    count = torch.full((), K3_LIVE, dtype=torch.int64, device=dev)
+    return data, count, pose
+
+
+def phase_zbuffer() -> dict:
+    """K3 (`csrc/zbuffer.cu`) against the op-by-op exact path
+    (`splat.render_ops`) on `_k3_map`, in each mode: index and cell equal on
+    every pixel, no row at or above the count shown, the float maps within
+    K3_FLOAT_RTOL relative; two kernels and a memset a call; then, in the
+    loop check's INACTIVE mode, device times of the kernel, of
+    `splat.render`'s whole call (the inverse pose and the tick's scalar
+    with it) and of the plain path, beside the bound: every row below the
+    count read once (both its sectors, 64 bytes), the key buffer set, read
+    once, the winning row of each drawn pixel read once and the prediction
+    written once, at 3.35 TB/s."""
+    data, count, pose = _k3_map()
+    t_now = torch.full((), K3_TIME, device="cuda")
+    tinv = se3mod.se3_inverse(pose)
+    n_live = int(count)
+    worst, out = 0.0, {}
+    for name, mode in K3_MODES:
+        args = (data, count, pose, K3_INTR, K3_W, K3_H, t_now)
+        kw = dict(time_delta=K3_TIME_DELTA, mode=mode)
+        k, p = splat.render(*args, **kw), splat.render_ops(*args, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(k.index, p.index) and torch.equal(k.cell, p.cell)):
+            bad = int((k.cell != p.cell).sum()) + int((k.index != p.index).sum())
+            raise AssertionError(f"zbuffer {name}: {bad} cells or pixels won by another row")
+        if int(k.cell.max()) >= n_live or int(k.index.max()) >= n_live:
+            raise AssertionError(f"zbuffer {name}: a row at or above the count was drawn")
+        rel = 0.0
+        for field, t in k._asdict().items():
+            if t.dtype == torch.float32:
+                ref = p._asdict()[field]
+                rel = max(rel, float(((t - ref).abs() / ref.abs().clamp_min(1e-30)).max()))
+        if rel > K3_FLOAT_RTOL:
+            raise AssertionError(f"zbuffer {name}: float maps {rel:.3e} apart, relative")
+        worst = max(worst, rel)
+        drawn = int((k.index >= 0).sum())
+        out[name] = dict(drawn=drawn, cells=int((k.cell >= 0).sum()), rel_err=rel)
+        log(f"[zbuffer] {name}: {drawn} pixels drawn, {out[name]['cells']} cells won; "
+            f"index and cell equal to the exact path's, floats within {rel:.3e} relative")
+        del k, p
+    kw = dict(time_delta=K3_TIME_DELTA, mode=splat.MODE_INACTIVE, splat_k=3, depth_max=100.0)
+    kernel = lambda: zbuffer.render_full(  # noqa: E731
+        data, count, tinv, t_now, K3_INTR, K3_W, K3_H, **kw)
+    whole = lambda: splat.render(data, count, pose, K3_INTR, K3_W, K3_H, t_now, **kw)  # noqa: E731
+    plain = lambda: splat.render_ops(data, count, pose, K3_INTR, K3_W, K3_H, t_now, **kw)  # noqa: E731
+    per_call, ops = cuda_build.kernels_per_call(kernel)
+    if (per_call, ops) != (2, 3):
+        raise AssertionError(f"zbuffer: one call enqueued {per_call} kernels in {ops} device "
+                             f"operations, not a memset and two kernels")
+    k_dev, r_dev, p_dev = device_ms(kernel, n=20), device_ms(whole, n=20), device_ms(plain, n=3)
+    hw, drawn = K3_W * K3_H, out["inactive"]["drawn"]
+    b_ms, b_by = bound_ms(64.0 * n_live + hw * (8 + 8 + 68) + 64.0 * drawn, 0.0)
+    log(f"[zbuffer] inactive, {n_live} rows below the count of {K3_ROWS}: device: kernel "
+        f"{k_dev * 1e3:.2f} us ({per_call:g} kernels + a memset a call), splat.render "
+        f"{r_dev * 1e3:.2f} us, plain {p_dev * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return dict(rows=K3_ROWS, live=n_live, modes=out, max_rel_err=worst, ms=k_dev,
+                render_ms=r_dev, plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=per_call)
 
 
 class _RenderedOnce:
@@ -2517,7 +2642,7 @@ def check_collab(solo: dict, ranks: list) -> dict:
         if not ok:
             raise AssertionError(f"collab: {what}")
     launches = {k: solo["launches"][k] + sum(r["launches"][k] for r in ranks)
-                for k in ("gram", "deform", "stamp", "track_iter")}
+                for k in ("gram", "deform", "zbuffer", "stamp", "track_iter")}
     fused_check("collab", launches, modes=False)
     shapes: dict = {}
     for r in [solo, *ranks]:
@@ -2818,7 +2943,7 @@ def phase_app() -> dict:
     # one 640x480 frame takes the host ~0.4 s to render: a spawned pool
     with multiprocessing.get_context("spawn").Pool(min(6, os.cpu_count() or 1)) as pool:
         frames = pool.map(seq.frame, range(MULTI_OFFSET + n))
-    launches, shapes, fps = dict(gram=0, deform=0, stamp=0, track_iter=0), {}, {}
+    launches, shapes, fps = dict(gram=0, deform=0, zbuffer=0, stamp=0, track_iter=0), {}, {}
 
     def count(label):
         settle()
@@ -2827,6 +2952,7 @@ def phase_app() -> dict:
         launches["deform"] += k2
         launches["stamp"] += klaunches.total("stamp")
         launches["track_iter"] += klaunches.total("track_iter")
+        launches["zbuffer"] += klaunches.total("zbuffer")
         for shape, k in klaunches.by_shape("gram").items():
             shapes[shape] = shapes.get(shape, 0) + k
         log(f"[app] {label}: K1 {k1} launches, K2 {k2}")
@@ -3172,9 +3298,34 @@ def phase_bench() -> dict:
                 shapes=shapes)
 
 
+def _k3_entry(k3: dict, launches) -> dict:
+    """K3's entry of the kernels line (`launches`: the legs' full renders,
+    None where no leg ran)."""
+    return {
+        "name": "zbuffer",
+        "route": "cuda",
+        "source": "densemonoslam_tpu_torch/csrc/zbuffer.cu",
+        "replaces": None,
+        "launches": launches,
+        "launches_per_call": k3["launches_per_call"],
+        "max_abs_err": k3["max_rel_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs an NVIDIA GPU")
+    if sys.argv[1:] == ["--k3"]:  # K3's phase alone
+        smi = phase_device()
+        k3 = phase_zbuffer()
+        log(smi)
+        print(json.dumps({"kernels": [_k3_entry(k3, None)]}))
+        return 0
     if sys.argv[1:2] == ["--collab-rank"]:  # one rank of `phase_collab`'s session
         res = collab_rank(sys.argv[2])
         print("RESULT " + json.dumps(res), flush=True)
@@ -3217,6 +3368,9 @@ def run(street: HostRender) -> int:
     lap("odometry")
     k2_synth = phase_deform_synthetic()
     lap("K2 synthetic")
+    k3 = phase_zbuffer()
+    torch.cuda.empty_cache()
+    lap("K3")
     closed = phase_closed_loop()
     lap("closed loop")
     k2_real = _deform_checks(
@@ -3336,6 +3490,8 @@ def run(street: HostRender) -> int:
             "library_ms": None,
             "shapes": k2_checks,
         },
+        _k3_entry(k3, sum(leg["launches"]["zbuffer"] for leg in (
+            odo, closed, mono, two, collab, app, train, bench))),
         {
             "name": "graph_if",
             "route": "cuda",

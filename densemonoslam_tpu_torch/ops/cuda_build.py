@@ -29,9 +29,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 # flags one source adds to NVCC_FLAGS: the fused tracking iteration builds
-# its rows without FMA contraction, so they round as the op-by-op
-# composition's elementwise operations do
-SOURCE_FLAGS = {"track_iter": ["--fmad=false"]}
+# its rows, and the full-map render its projections, without FMA
+# contraction, so they round as the op-by-op composition's elementwise
+# operations do
+SOURCE_FLAGS = {"track_iter": ["--fmad=false"], "zbuffer": ["--fmad=false"]}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # nvcc processes started: a run reads it to show that no kernel was built
 # inside its timed frames

@@ -13,6 +13,11 @@
 
 The ACTIVE tail block is gathered by index (`index_select`), not sliced, so
 its data-dependent start never has to be read back to the host.
+
+A render of the whole map (`full_map`: no active window, more rows than the
+packed key holds) runs on the card as kernel K3 (`ops.zbuffer`), over the
+rows below the count; `render_ops`, the op-by-op composition above, is its
+plain version and the CPU's path.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import torch
 
 from densemonoslam_tpu_torch.config import CameraIntrinsics
 from densemonoslam_tpu_torch.mapping import surfel_map as sm
-from densemonoslam_tpu_torch.ops import warp
-from densemonoslam_tpu_torch.utils import se3
+from densemonoslam_tpu_torch.ops import warp, zbuffer
+from densemonoslam_tpu_torch.utils import se3, timer
 from densemonoslam_tpu_torch.utils.tensors import scalar
 
 MODE_ACTIVE = 0  # surfels seen within the time window (tracking/fusion view)
@@ -37,13 +42,21 @@ _FAR = 1e9
 _I32_MAX = int(np.iinfo(np.int32).max)
 # int32 view of the 0.05 m near-plane float (the z gate floor)
 _Z_FLOOR_BITS = int(np.float32(0.05).view(np.int32))
+PACKED_MAX_ROWS = 1 << 21  # the packed key's 21 index bits
+
+
+def full_map(n_rows: int, windowed: bool) -> bool:
+    """Whether a render is of the whole map: no active window and more rows
+    than the packed key holds, where `packed_key_params` gives None.  On
+    the card such a render is kernel K3's (`ops.zbuffer`)."""
+    return not windowed and n_rows > PACKED_MAX_ROWS
 
 
 def packed_key_params(n_rows: int, depth_max: float, windowed: bool) -> tuple[int, int] | None:
     """Static (idx_bits, shift) layout of the packed z-buffer key
     ``((bits(z) - bits(0.05)) >> shift) * 2^idx_bits + idx``, or None when
     the exact two-scatter path must be used (the reference's rules)."""
-    if n_rows > (1 << 21):
+    if n_rows > PACKED_MAX_ROWS:
         return None
     idx_bits = max(int(np.ceil(np.log2(max(n_rows, 2)))), 1) if windowed else 21
     span = int(np.float32(min(depth_max, 1e9)).view(np.int32)) - _Z_FLOOR_BITS
@@ -101,7 +114,42 @@ def render(
     """Render the surfel map from `pose`.  ACTIVE keeps surfels last seen
     within `time_delta` of `time`, INACTIVE the complement; `window` > 0
     (ACTIVE only) restricts the pass to the active tail block, while
-    `Prediction.index` stays a global row index."""
+    `Prediction.index` stays a global row index.  A render of the whole
+    map (`full_map`) is the `render.full` span; on the card it is one call
+    of kernel K3, elsewhere `render_ops`."""
+    N = data.shape[0] - 1
+    args = (data, count, pose, intr, width, height, time, time_delta, mode, splat_k, depth_max)
+    if not full_map(N, window > 0 and window < N and mode == MODE_ACTIVE):
+        return render_ops(*args, window=window, packed_zbuffer=packed_zbuffer)
+    dev = data.device
+    with timer.span("render.full", device=dev.type == "cuda"):
+        if dev.type != zbuffer.KERNEL_DEVICE:
+            return render_ops(*args)
+        return Prediction(*zbuffer.render_full(
+            data, count.to(torch.int64), se3.se3_inverse(pose), scalar(time, torch.float32, dev),
+            intr, width, height, time_delta=time_delta, mode=mode, splat_k=splat_k,
+            depth_max=depth_max,
+        ))
+
+
+def render_ops(
+    data: torch.Tensor,  # [N+1, 16] surfel rows (sm layout)
+    count: torch.Tensor,  # [] int
+    pose: torch.Tensor,  # [4,4] camera-to-world of the view to render
+    intr: CameraIntrinsics,
+    width: int,
+    height: int,
+    time: torch.Tensor | float,
+    time_delta: int = 200,
+    mode: int = MODE_ALL,
+    splat_k: int = 3,
+    depth_max: float = 100.0,
+    window: int = 0,
+    packed_zbuffer: bool = True,
+) -> Prediction:
+    """`render` op by op: the CPU's path, and K3's plain version for a
+    render of the whole map (an exact two-scatter z-buffer over every row
+    of the capacity)."""
     dev = data.device
     N = data.shape[0] - 1
     HW = height * width
